@@ -1,0 +1,309 @@
+"""AsyncFleetEngine: the paper's asynchronous scheme, one window at a time.
+
+Port of `repro.fleet.async_engine` for one device.  Per-node virtual
+clocks and dispatched models live on the device; each window
+
+  1. selects every pending arrival inside [t0, t0 + window);
+  2. runs the shared upload pipeline (local SGD from each node's stale
+     dispatched params -> DGC sparsify -> ALDP) for the whole window;
+  3. folds the window into the global model in arrival order: a scalar
+     control scan on the host (detection ring, staleness, version) emits
+     per arrival a gate and the coefficients (a, b) of
+     params = gate ? a·params + b·omega : params, and the param fold runs
+     as the `kernels.window_fold` kernel on either spec backend (the
+     kernel is bitwise the reference's fold);
+  4. redispatches each processed node with the model right after its own
+     arrival and advances its clock by uplink + compute time.
+
+With the auto window (min node compute time) arrivals are handled in the
+event loop's global time order, and the masked key chain is consumed as
+the reference consumes it.  The buffered (FedBuff) fold is not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import prng
+from .. import tree as tree_util
+from ..core import async_update, detection
+from ..device import resolve
+from . import stages
+from .engine import ClientSampler, FleetConfig, NodeProfile, check_ported
+from .state import gather_nodes, init_async_fleet_state
+
+
+@dataclass
+class AsyncFleetConfig(FleetConfig):
+    """`FleetConfig` + the asynchronous scheduler knobs."""
+    window: Optional[float] = None  # None => min node compute time
+    mixing: str = "sequential"      # sequential (buffered: not ported yet)
+    staleness_adaptive: bool = False
+    staleness_a: float = 0.5
+    detect_warmup: int = 4
+    detect_window: int = 8
+
+
+@dataclass
+class AsyncWindowRecord:
+    t: float
+    window: int
+    version: int
+    accuracy: float
+    comm_bytes: float
+    comp_time: float
+    comm_time: float
+    n_processed: int
+    n_rejected: int
+    max_staleness: int
+
+
+@dataclass
+class FoldControl:
+    """The control scan's per-arrival outputs (host arrays)."""
+    version: int
+    ring: torch.Tensor
+    count: int
+    v_seq: np.ndarray       # (C,) version after each slot
+    rej: np.ndarray         # (C,) rejected by detection
+    taus: np.ndarray        # (C,) staleness
+    gates: np.ndarray       # (C,) mix this arrival?
+    a: np.ndarray           # (C,) f32 coefficient on params
+    b: np.ndarray           # (C,) f32 coefficient on omega
+
+
+def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
+                 count: int, accs: torch.Tensor, vdisp_c: np.ndarray,
+                 arrived: np.ndarray) -> FoldControl:
+    """The fold's scalar bookkeeping, in arrival order on the host: ring
+    pushes, Alg. 2 verdicts, staleness and versions.  Rejection never
+    depends on params, so splitting it from the param fold is exact."""
+    accs = accs.detach().to("cpu", torch.float32)
+    c = accs.shape[0]
+    v_seq = np.zeros(c, np.int32)
+    rej = np.zeros(c, bool)
+    taus = np.zeros(c, np.int32)
+    gates = np.zeros(c, bool)
+    a = np.full(c, np.float32(cfg.alpha), np.float32)
+    b = np.full(c, np.float32(1.0 - cfg.alpha), np.float32)
+    for i in range(c):
+        if arrived[i]:
+            ring, count = detection.ring_push(ring, count, accs[i])
+            if cfg.detect:
+                rej[i] = detection.ring_detect(ring, count, accs[i],
+                                               cfg.detect_s,
+                                               cfg.detect_warmup)
+        taus[i] = version - int(vdisp_c[i])
+        if cfg.staleness_adaptive:
+            w = async_update.staleness_alpha(cfg.alpha, int(taus[i]),
+                                             cfg.staleness_a)
+            a[i] = float(torch.ones((), dtype=torch.float32) - w)
+            b[i] = float(w)
+        gates[i] = bool(arrived[i]) and not rej[i]
+        version += int(gates[i])
+        v_seq[i] = version
+    return FoldControl(version, ring, count, v_seq, rej, taus, gates, a, b)
+
+
+def sequential_fold(cfg: AsyncFleetConfig, params, version, ring, count,
+                    omegas, accs, vdisp_c, arrived):
+    """Eq. (6)/mix_stale over arrival order with streaming detection.
+    Returns (params, control, per-arrival snapshots tree)."""
+    from ..kernels.window_fold import window_fold_fleet
+
+    ctl = control_scan(cfg, version, ring, count, accs, vdisp_c, arrived)
+    layout = stages.cohort_layout(omegas)
+    dev = tree_util.leaves(params)[0].device
+    final, seq = window_fold_fleet(
+        layout.flatten_one(params), layout.flatten(omegas),
+        torch.as_tensor(ctl.gates, device=dev),
+        torch.as_tensor(ctl.a, device=dev),
+        torch.as_tensor(ctl.b, device=dev))
+    return layout.unflatten_one(final), ctl, layout.unflatten(seq)
+
+
+class AsyncFleetEngine:
+    """Event-driven async FEL over a stacked node fleet, one window per
+    step, on one device (``device="cuda"`` by default).  ``sampler``
+    models churn: an unavailable node loses its in-window upload (no mix,
+    no detection entry) but is redispatched."""
+
+    def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
+                 node_data, test_data, cloud_test, cfg: AsyncFleetConfig,
+                 profile: Optional[NodeProfile] = None,
+                 sampler: Optional[ClientSampler] = None, device=None):
+        check_ported(cfg)
+        if cfg.mixing != "sequential":
+            raise NotImplementedError(
+                f"mixing={cfg.mixing!r}: the buffered fold is not ported "
+                f"yet (ROADMAP.md, 'Buffered fold')")
+        self.device = resolve(device)
+        self.cfg = cfg
+        self.params = tree_util.map(lambda x: x.to(self.device), init_params)
+        self.loss_fn = loss_fn
+        self.acc_fn = acc_fn
+        (self.data, self.n_nodes, self.test_data, self.cloud_test,
+         self.profile, self.n_params) = stages.init_engine_common(
+            self.params, node_data, test_data, cloud_test, profile,
+            self.device)
+        self.sampler = sampler
+        self._bpn = stages.bytes_per_node(self.n_params, cfg.sparsify_ratio)
+        # float64 host copies feed window selection and the records; the
+        # f32 device copies feed the clock update
+        self._comm_s = np.asarray(self._bpn / self.profile.bandwidth_bps,
+                                  np.float64)
+        self._comp_s = np.asarray(self.profile.compute_s, np.float64)
+        self._window_len = (cfg.window if cfg.window is not None
+                            else float(self._comp_s.min()))
+        if self._window_len <= 0:
+            raise ValueError(f"window must be positive, got "
+                             f"{self._window_len}")
+        self.state = init_async_fleet_state(
+            self.params, self.n_nodes, prng.PRNGKey(cfg.seed),
+            first_arrival=self._comp_s, detect_window=cfg.detect_window)
+        self._window_idx = 0
+        self.history: List[AsyncWindowRecord] = []
+        self._window_fn = self._build_window()
+
+    def load_state(self, residuals_stacked, chain_key) -> None:
+        self.state.residuals = tree_util.map(
+            lambda x: x.to(self.device, torch.float32).clone(),
+            residuals_stacked)
+        self.state.chain_key = np.asarray(chain_key, np.uint32)
+
+    # -- one arrival window ---------------------------------------------------
+    def _build_window(self):
+        cfg = self.cfg
+        acc_fn = self.acc_fn
+        cloud_x, cloud_y = self.cloud_test
+        local_train = stages.make_local_train(self.loss_fn, cfg.local_steps,
+                                              cfg.lr, cfg.batch_size)
+        comp_s = torch.as_tensor(self._comp_s.astype(np.float32),
+                                 device=self.device)
+        data, dev = self.data, self.device
+
+        def window_fn(params, state, order, proc, avail, up_s):
+            """order: node ids sorted by (arrival, id), truncated to the
+            power-of-two bucket; proc: in-window flags; avail: churn mask;
+            up_s: per-slot uplink seconds."""
+            order_t = torch.as_tensor(order, dtype=torch.int64, device=dev)
+            t_arr = state.next_arrival.index_select(0, order_t)
+            vdisp_c = state.dispatched_version.index_select(
+                0, order_t).cpu().numpy()
+            disp_c = gather_nodes(state.dispatched, order_t)
+            res_c = gather_nodes(state.residuals, order_t)
+            if cfg.key_mode == "sequential":
+                chain_key, k1s, k2s = prng.chain_node_keys_masked(
+                    state.chain_key, proc)
+            else:
+                chain_key, k1s, k2s = prng.parallel_node_keys(
+                    state.chain_key, order.shape[0])
+            bidx = stages.batch_indices(k1s, data.sizes[order],
+                                        cfg.local_steps, cfg.batch_size, dev)
+            local = local_train(disp_c, data.x, data.y, order_t, bidx)
+            deltas = tree_util.map(lambda l, d: l - d.to(l.dtype), local,
+                                   disp_c)
+            deltas, res_c, _ = stages.upload_pipeline(cfg, deltas, res_c,
+                                                      k2s)
+            omegas, accs = stages.rebuild_and_evaluate(
+                acc_fn, disp_c, deltas, cloud_x, cloud_y)
+
+            arrived = proc & avail
+            params, ctl, p_seq = sequential_fold(
+                cfg, params, state.version, state.acc_ring, state.acc_count,
+                omegas, accs, vdisp_c, arrived)
+
+            # redispatch the processed slots (in place): the model right
+            # after their own arrival, its version, a fresh clock
+            sel = torch.as_tensor(np.flatnonzero(proc), device=dev)
+            nodes = order_t[sel]
+            tree_util.map(lambda f, p: f.index_copy_(0, nodes, p[sel]),
+                          state.dispatched, p_seq)
+            tree_util.map(lambda f, p: f.index_copy_(0, nodes, p[sel]),
+                          state.residuals, res_c)
+            state.dispatched_version.index_copy_(
+                0, nodes, torch.as_tensor(ctl.v_seq, device=dev)[sel])
+            t_next = (t_arr + torch.as_tensor(up_s, device=dev)
+                      + comp_s.index_select(0, order_t))
+            state.next_arrival.index_copy_(0, nodes, t_next[sel])
+            new_state = dataclasses.replace(
+                state, chain_key=chain_key, version=ctl.version,
+                acc_ring=ctl.ring, acc_count=ctl.count)
+            metrics = {
+                "n_rejected": int((ctl.rej & arrived).sum()),
+                "max_staleness": int(np.where(arrived, ctl.taus, 0).max())}
+            return params, new_state, metrics
+
+        return window_fn
+
+    def select_window(self, max_arrivals: Optional[int] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+        """(order, proc): node ids sorted by (arrival, id) and in-window
+        flags, truncated to the smallest power-of-two bucket (floored at
+        16) that covers the in-window arrivals."""
+        na = self.state.next_arrival.cpu().numpy().astype(np.float64)
+        order = np.lexsort((np.arange(self.n_nodes), na))
+        proc = na[order] < na[order[0]] + self._window_len
+        if max_arrivals is not None:
+            proc &= np.cumsum(proc) <= max_arrivals
+        c = 16
+        while c < int(proc.sum()):
+            c *= 2
+        c = min(c, self.n_nodes)
+        return order[:c], proc[:c]
+
+    def run_window(self, max_arrivals: Optional[int] = None,
+                   evaluate: bool = True) -> AsyncWindowRecord:
+        """Process one arrival window (``evaluate=False`` records NaN
+        instead of the global test accuracy)."""
+        w = self._window_idx
+        order, proc = self.select_window(max_arrivals)
+        t_arr = self.state.next_arrival.cpu().numpy().astype(
+            np.float64)[order]
+        if self.sampler is not None:
+            idx_s, up = self.sampler.cohort(w, self.n_nodes)
+            mask = np.zeros(self.n_nodes, bool)
+            mask[np.asarray(idx_s)[np.asarray(up, bool)]] = True
+            avail = mask[order]
+        else:
+            avail = np.ones(order.size, bool)
+        sel = order[proc]
+        up_s = self._comm_s[order].astype(np.float32)
+        self.params, self.state, m = self._window_fn(
+            self.params, self.state, order, proc, avail, up_s)
+        self._window_idx = w + 1
+        uplink = self._comm_s[sel]
+        t_arrive = t_arr[proc] + uplink
+        rec = AsyncWindowRecord(
+            t=float(t_arrive.max()) if sel.size else 0.0,
+            window=w, version=int(self.state.version),
+            accuracy=self.global_accuracy() if evaluate else float("nan"),
+            comm_bytes=float(self._bpn * sel.size),
+            comp_time=float(self._comp_s[sel].sum()),
+            comm_time=float(uplink.sum()),
+            n_processed=int(sel.size), n_rejected=m["n_rejected"],
+            max_staleness=m["max_staleness"])
+        self.history.append(rec)
+        return rec
+
+    def run(self, windows: int) -> List[AsyncWindowRecord]:
+        for _ in range(windows):
+            self.run_window()
+        return self.history
+
+    def global_accuracy(self) -> float:
+        return float(self.acc_fn(self.params, *self.test_data))
+
+    def export_residuals(self):
+        return self.state.residuals
+
+    def kappa(self) -> float:
+        """Eq. (5) over the whole run (per-arrival totals)."""
+        comm = sum(r.comm_time for r in self.history)
+        comp = sum(r.comp_time for r in self.history)
+        return async_update.communication_efficiency(comm, comp)

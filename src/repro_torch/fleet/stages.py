@@ -1,0 +1,224 @@
+"""Cohort-batched pipeline stages shared by the sync and async engines.
+
+Port of `repro.fleet.stages`:
+
+  local SGD -> delta -> [DGC accumulate+sparsify] -> [ALDP clip+noise]
+            -> rebuild node models -> cloud-side accuracy
+
+The upload runs the hand-written fused kernel `kernels.upload_fused` on
+both spec backends: at σ=0 (the only "reference" setting the port takes)
+its keep set, residual' and nnz are bitwise the reference backend's
+per-leaf DGC split, since both use `leaf_threshold` and |c| >= thr.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .. import prng
+from .. import tree as tree_util
+from ..core import accumulator as accum
+from ..core.detection import nanpercentile
+from ..net.codecs import analytic_upload_bytes
+
+
+# ---------------------------------------------------------------------------
+# stage: node-local minibatch SGD
+# ---------------------------------------------------------------------------
+
+def make_local_train(loss_fn, local_steps: int, lr: float, batch_size: int):
+    """Cohort-batched local SGD: ``torch.func.vmap`` of ``torch.func.grad``
+    over the node axis, one step per loop iteration (the reference scans
+    `local_steps` steps of the same update)."""
+    grad = torch.func.vmap(torch.func.grad(
+        lambda p, x, y: loss_fn(p, {"x": x, "y": y})[0]))
+
+    def local_train(params, x, y, rows: torch.Tensor, idx: torch.Tensor):
+        """params stacked (C, ...); x/y the fleet's (N, M, ...) shards;
+        rows (C,) node ids; idx (C, local_steps, B) minibatch indices."""
+        p = params
+        r = rows[:, None]
+        for s in range(local_steps):
+            g = grad(p, x[r, idx[:, s]], y[r, idx[:, s]])
+            p = tree_util.map(lambda a, b: a - lr * b, p, g)
+        return p
+
+    return local_train
+
+
+def batch_indices(k1s: np.ndarray, sizes: np.ndarray, local_steps: int,
+                  batch_size: int, device) -> torch.Tensor:
+    """The reference's minibatch draws for each node key, on the device."""
+    return torch.as_tensor(
+        prng.batch_indices(k1s, local_steps, batch_size, sizes),
+        device=device)
+
+
+# ---------------------------------------------------------------------------
+# stage: upload pipeline (DGC sparsify -> ALDP), cohort-batched
+# ---------------------------------------------------------------------------
+
+def upload_pipeline(cfg, deltas, residuals_c, k2s: np.ndarray,
+                    need_nnz: bool = False):
+    """[DGC accumulate+sparsify] -> [ALDP clip+noise] over a stacked cohort
+    as one `upload_fused_fleet` launch over the flattened cohort.  The
+    per-leaf quantile thresholds and the post-sparsify L2 clip norms stay
+    a PyTorch pre-pass here, as they stay a jnp pre-pass in the reference.
+    Returns (uploaded deltas, updated cohort residuals, nnz or None)."""
+    from ..kernels import upload_fused as uf
+
+    do_sparsify = cfg.sparsify_ratio < 1.0
+    apply_ldp = cfg.sigma > 0.0
+    if not (do_sparsify or apply_ldp):
+        if need_nnz:
+            raise NotImplementedError(
+                "a wire nonzero count without sparsify or noise runs kernel "
+                "K3 (nnz_fleet), not ported yet (ROADMAP.md, 'Network')")
+        return deltas, residuals_c, None
+    layout = cohort_layout(deltas)
+    flat_d = layout.flatten(deltas)
+    thresholds = flat_r = comb = None
+    if do_sparsify:
+        flat_r = layout.flatten(residuals_c)
+        comb = flat_d + flat_r
+        thresholds = torch.stack(
+            [accum.leaf_threshold(comb[:, off:off + size],
+                                  cfg.sparsify_ratio)
+             for off, size in zip(layout.offsets, layout.sizes)], dim=1)
+    seeds = scales = None
+    if apply_ldp:
+        if do_sparsify:
+            thr_elem = uf.spread_thresholds(thresholds, layout.offsets,
+                                            layout.total)
+            sp = torch.where(comb.abs() >= thr_elem, comb,
+                             torch.zeros((), device=comb.device))
+        else:
+            sp = flat_d
+        norms = torch.sqrt(torch.sum(torch.square(sp), dim=1))
+        scales = 1.0 / torch.clamp(norms / cfg.clip_s, min=1.0)
+        seeds = torch.as_tensor(prng.node_noise_seeds(k2s),
+                                device=flat_d.device)
+    up, newr, nnz = uf.upload_fused_fleet(
+        flat_d, flat_r, thresholds, seeds, scales, cfg.sigma, cfg.clip_s,
+        boundaries=layout.offsets, need_nnz=need_nnz)
+    deltas = layout.unflatten(up)
+    if do_sparsify:
+        residuals_c = layout.unflatten(newr)
+    return deltas, residuals_c, nnz
+
+
+def rebuild_and_evaluate(acc_fn, start_params, deltas, cloud_x, cloud_y):
+    """Rebuild every node's uploaded model ω_new = ω_start + Δ and score it
+    on the cloud testing dataset (§5.4).  ``start_params`` is the global
+    model (no node axis, broadcast) or the stacked dispatched params."""
+    broadcast = (tree_util.leaves(deltas)[0].ndim
+                 > tree_util.leaves(start_params)[0].ndim)
+    if broadcast:
+        omegas = tree_util.map(lambda g, d: g[None].to(d.dtype) + d,
+                               start_params, deltas)
+    else:
+        omegas = tree_util.map(lambda g, d: g.to(d.dtype) + d,
+                               start_params, deltas)
+    accs = torch.func.vmap(acc_fn, in_dims=(0, None, None))(
+        omegas, cloud_x, cloud_y)
+    return omegas, accs
+
+
+# ---------------------------------------------------------------------------
+# stage: masked detection (Alg. 2 over a partially-valid cohort)
+# ---------------------------------------------------------------------------
+
+def detect_masked(accs: torch.Tensor, valid: torch.Tensor, s: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alg. 2 with padded slots excluded: threshold is the top-s
+    percentile of the valid accuracies (`detection.nanpercentile`, the
+    reference's compiled arithmetic)."""
+    accs = accs.to(torch.float32)
+    masked = torch.where(valid, accs, torch.full_like(accs, float("nan")))
+    thr = nanpercentile(masked, s)
+    mask = (accs > thr) & valid
+    mask = torch.where(mask.any(), mask, (accs >= thr) & valid)
+    return mask, thr
+
+
+# ---------------------------------------------------------------------------
+# cohort flat layout
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CohortLayout:
+    """Flat layout of a stacked cohort tree in the reference's leaf order:
+    per-node shapes, sizes and start offsets in the (C, P) f32 view."""
+    template: object
+    shapes: Tuple[Tuple[int, ...], ...]
+    sizes: Tuple[int, ...]
+    offsets: Tuple[int, ...]
+    total: int
+
+    def flatten(self, tree) -> torch.Tensor:
+        """Stacked tree with leading cohort axis -> (C, P) f32."""
+        return torch.cat([l.reshape(l.shape[0], -1).to(torch.float32)
+                          for l in tree_util.leaves(tree)], dim=1)
+
+    def flatten_one(self, tree) -> torch.Tensor:
+        """Unbatched tree -> (P,) f32, same leaf order."""
+        return torch.cat([l.reshape(-1).to(torch.float32)
+                          for l in tree_util.leaves(tree)])
+
+    def unflatten(self, flat: torch.Tensor):
+        return tree_util.unflatten_like(self.template, [
+            flat[:, o:o + s].reshape((flat.shape[0],) + shape)
+            for shape, s, o in zip(self.shapes, self.sizes, self.offsets)])
+
+    def unflatten_one(self, flat: torch.Tensor):
+        return tree_util.unflatten_like(self.template, [
+            flat[o:o + s].reshape(shape)
+            for shape, s, o in zip(self.shapes, self.sizes, self.offsets)])
+
+
+def cohort_layout(tree) -> CohortLayout:
+    """The `CohortLayout` of a stacked tree (leading cohort axis)."""
+    leaves = tree_util.leaves(tree)
+    shapes = tuple(tuple(l.shape[1:]) for l in leaves)
+    sizes = tuple(int(np.prod(s)) for s in shapes)
+    offsets = tuple(int(o) for o in np.concatenate(
+        [[0], np.cumsum(sizes)[:-1]]))
+    return CohortLayout(tree, shapes, sizes, offsets, int(sum(sizes)))
+
+
+# ---------------------------------------------------------------------------
+# construction + analytic wire accounting shared by both engines
+# ---------------------------------------------------------------------------
+
+DEFAULT_BANDWIDTH_BPS = 12.5e6      # 100 Mbit/s edge uplink
+
+
+def init_engine_common(init_params, node_data, test_data, cloud_test,
+                       profile, device):
+    """Setup both engines share: shards to `FleetData` on the device, eval
+    sets to the device, the default system profile, the param count.
+
+    Returns (data, n_nodes, test, cloud, profile, n_params)."""
+    from .engine import NodeProfile       # deferred: engine imports stages
+    from .state import FleetData
+
+    data = (node_data if isinstance(node_data, FleetData)
+            else FleetData.from_node_data(node_data, device=device))
+    n_nodes = data.n_nodes
+    test = tuple(torch.as_tensor(np.asarray(a), device=device)
+                 for a in test_data)
+    cloud = tuple(torch.as_tensor(np.asarray(a), device=device)
+                  for a in cloud_test)
+    profile = profile or NodeProfile(
+        compute_s=np.ones(n_nodes),
+        bandwidth_bps=np.full(n_nodes, DEFAULT_BANDWIDTH_BPS))
+    return data, n_nodes, test, cloud, profile, tree_util.size(init_params)
+
+
+def bytes_per_node(n_params: int, sparsify_ratio: float) -> float:
+    """Analytic upload size per node: dense f32 values, or (value, index)
+    pairs for a sparsified upload."""
+    return analytic_upload_bytes(n_params, sparsify_ratio)

@@ -1,0 +1,181 @@
+"""Fused upload pipeline (DGC sparsify + nnz + ALDP clip/noise) for a cohort.
+
+Port of `repro.kernels.upload_fused`.  `upload_fused_fleet` keeps the
+reference's signature; on CUDA tensors it launches the hand-written
+kernel in ``csrc/upload_fused.cu`` (one pass over the (C, N) cohort), on
+CPU tensors it runs `upload_fused_plain`, the PyTorch version of the same
+arithmetic (the reference's `upload_fused_reference` + `block_noise`).
+
+The noise is the reference kernel's counter-hash Box–Muller stream: node
+i draws element e of TPU tile b (a tile is 256 × 1024 flat positions)
+from murmur(e + u32(seed_i + b·7919)·2654435761 + stream·0x9E3779B9).
+The hash runs in int64 masked to 32 bits.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import _build
+
+TILE = 256 * 1024           # the TPU kernel's (256, 1024) block
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2^32 for a in [0, 2^32) without int64 overflow."""
+    return ((a * (b & 0xFFFF)) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def block_noise(seeds: torch.Tensor, n: int, sigma_s: float) -> torch.Tensor:
+    """The reference kernel's per-tile Box–Muller noise for every node row:
+    seeds (C,) int32 -> (C, n) float32 (σS-scaled)."""
+    dev = seeds.device
+    p = torch.arange(n, dtype=torch.int64, device=dev)
+    blk = p // TILE
+    e = p % TILE
+    tiles = torch.arange(max(1, -(-n // TILE)), dtype=torch.int64, device=dev)
+    blk_seed = (seeds.to(torch.int64)[:, None] + tiles[None] * 7919) & _M32
+    base = _mul32(blk_seed, 2654435761)                     # (C, nb)
+
+    def uniform(stream: int) -> torch.Tensor:
+        x = (e[None] + base[:, blk] + ((stream * 0x9E3779B9) & _M32)) & _M32
+        x = x ^ (x >> 16)
+        x = _mul32(x, 0x7FEB352D)
+        x = x ^ (x >> 15)
+        x = _mul32(x, 0x846CA68B)
+        x = x ^ (x >> 16)
+        return (x >> 8).to(torch.float32) / float(1 << 24)
+
+    u1 = torch.clamp(uniform(1), min=1e-12)
+    u2 = uniform(2)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    return sigma_s * r * torch.cos((2.0 * math.pi) * u2)
+
+
+def spread_thresholds(thresholds: torch.Tensor, boundaries: Sequence[int],
+                      n: int) -> torch.Tensor:
+    """(C, L) per-leaf thresholds -> (C, N) per-element thresholds under
+    the static leaf layout ``boundaries`` (start offsets)."""
+    ends = list(boundaries[1:]) + [n]
+    sizes = torch.tensor([e - int(b) for b, e in zip(boundaries, ends)],
+                         device=thresholds.device)
+    return torch.repeat_interleave(thresholds, sizes, dim=1)
+
+
+def upload_fused_plain(flat, residuals, thresholds, seeds, clip_scales,
+                       sigma: float, clip_s: float, *,
+                       boundaries: Sequence[int] = (0,),
+                       need_nnz: bool = False):
+    """Plain PyTorch version of the fused pipeline (the parity oracle)."""
+    c, n = flat.shape
+    g = flat.to(torch.float32)
+    newr = None
+    if residuals is not None:
+        comb = g + residuals.to(torch.float32)
+        keep = comb.abs() >= spread_thresholds(thresholds, boundaries, n)
+        zero = torch.zeros((), dtype=torch.float32, device=flat.device)
+        up = torch.where(keep, comb, zero)
+        newr = torch.where(keep, zero, comb).to(residuals.dtype)
+    else:
+        up = g
+    nnz = (up != 0).sum(1).to(torch.int32) if need_nnz else None
+    if clip_scales is not None:
+        up = up * clip_scales.to(torch.float32)[:, None]
+        sigma_s = float(sigma) * float(clip_s)
+        if sigma_s > 0.0:
+            up = up + block_noise(seeds, n, sigma_s)
+    return up.to(flat.dtype), newr, nnz
+
+
+def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.upload_fused_launch
+    if fn.argtypes is None:
+        v = ctypes.c_void_p
+        fn.argtypes = [v, v, v, v, ctypes.c_int, v, v, ctypes.c_float,
+                       v, v, v, ctypes.c_int, ctypes.c_int, ctypes.c_int, v]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _leaf_starts(boundaries: Tuple[int, ...], device: torch.device
+                 ) -> torch.Tensor:
+    """The leaf start offsets as an int32 device array, made once per
+    layout: a fresh host-to-device copy from pageable memory would
+    synchronise the stream on every launch."""
+    return torch.tensor(boundaries, dtype=torch.int32, device=device)
+
+
+def _check(t, name, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"upload_fused: {name} must be {dtype} {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"upload_fused: {name} must be contiguous")
+
+
+def upload_fused_fleet(flat: torch.Tensor,
+                       residuals: Optional[torch.Tensor],
+                       thresholds: Optional[torch.Tensor],
+                       seeds: Optional[torch.Tensor],
+                       clip_scales: Optional[torch.Tensor],
+                       sigma: float, clip_s: float, *,
+                       boundaries: Sequence[int] = (0,),
+                       need_nnz: bool = False):
+    """Whole-cohort fused upload pipeline.
+
+    flat (C, N) f32 stacked per-node deltas; residuals (C, N) or None to
+    skip sparsification; thresholds (C, L) per-node per-leaf DGC cutoffs;
+    seeds (C,) int32 node-distinct noise seeds; clip_scales (C,) f32 =
+    1/max(1, ‖upload‖/S), or None to skip ALDP; boundaries: start offset
+    of each leaf.  Returns (upload (C, N), residual' or None, nnz (C,)
+    int32 or None)."""
+    if flat.device.type == "cpu":
+        return upload_fused_plain(flat, residuals, thresholds, seeds,
+                                  clip_scales, sigma, clip_s,
+                                  boundaries=boundaries, need_nnz=need_nnz)
+    if flat.device.type != "cuda":
+        raise ValueError(f"upload_fused: unsupported device {flat.device}")
+    dev = flat.device
+    c, n = flat.shape
+    do_sparsify = residuals is not None
+    apply_ldp = clip_scales is not None
+    sigma_s = float(sigma) * float(clip_s) if apply_ldp else 0.0
+    if not 1 <= c <= 65535:
+        raise ValueError(f"upload_fused: cohort size {c} outside [1, 65535]")
+    _check(flat, "flat", (c, n), torch.float32, dev)
+    bounds = None
+    if do_sparsify:
+        _check(residuals, "residuals", (c, n), torch.float32, dev)
+        _check(thresholds, "thresholds", (c, len(boundaries)), torch.float32,
+               dev)
+        bounds = _leaf_starts(tuple(int(b) for b in boundaries), dev)
+    if sigma_s > 0.0:
+        _check(seeds, "seeds", (c,), torch.int32, dev)
+    if apply_ldp:
+        _check(clip_scales, "clip_scales", (c,), torch.float32, dev)
+    lib = _configure(_build.load("upload_fused"))
+    up = torch.empty_like(flat)
+    newr = torch.empty_like(flat) if do_sparsify else None
+    nnz = torch.zeros(c, dtype=torch.int32, device=dev) if need_nnz else None
+    flags = (do_sparsify | apply_ldp << 1 | (sigma_s > 0.0) << 2
+             | need_nnz << 3)
+    p = _build.ptr
+    rc = lib.upload_fused_launch(
+        p(flat), p(residuals), p(thresholds), p(bounds),
+        len(boundaries), p(seeds if sigma_s > 0.0 else None),
+        p(clip_scales), ctypes.c_float(sigma_s), p(up), p(newr), p(nnz),
+        c, n, flags,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(rc, lib, "upload_fused_error_string")
+    upload_fused_fleet.launches += 1
+    return up, newr, nnz
+
+
+upload_fused_fleet.launches = 0

@@ -7,3 +7,8 @@ sys.path.insert(0, os.path.dirname(__file__))  # for tests/_optional.py
 import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc; skips without a card")

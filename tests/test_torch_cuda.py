@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here needs a CUDA device and nvcc (the kernels build at first
+use) and skips without them.  The file imports neither `jax` nor `repro`,
+so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances: K1's residual', keep set and nnz bitwise, its noised upload
+within 2e-6 · max(1, σS) (the noise's log/cos are libm's in the kernel and
+PyTorch's CUDA math in the plain version); K2 bitwise (both compute each
+gated step as one fma(a, cur, b·ω)).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api, tree
+from repro_torch.kernels import upload_fused as uf
+from repro_torch.kernels import window_fold as wf
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _upload_args(dev, k, sizes, ratio, sigma, seed):
+    rng = np.random.default_rng(seed)
+    n = sum(sizes)
+    offs = tuple(int(b) for b in np.cumsum((0,) + tuple(sizes))[:-1])
+    flat = torch.tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    res = torch.tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    thr = torch.tensor(rng.random((k, len(sizes))).astype(np.float32),
+                       device=dev) if ratio < 1.0 else None
+    seeds = torch.tensor(rng.integers(-2**31, 2**31, k).astype(np.int32),
+                         device=dev)
+    scales = torch.tensor((rng.random(k) + 0.5).astype(np.float32),
+                          device=dev) if sigma > 0 else None
+    return (flat, res if ratio < 1.0 else None, thr, seeds, scales, sigma,
+            1.3), offs
+
+
+@pytest.mark.parametrize("need_nnz", [True, False])
+@pytest.mark.parametrize("ratio,sigma", [(0.3, 0.0), (1.0, 0.5), (0.3, 0.5)])
+@pytest.mark.parametrize("k,sizes", [(3, (700, 1301, 96)),
+                                     (1, (150000, 120001))])
+def test_upload_fused_kernel_matches_plain(cuda, k, sizes, ratio, sigma,
+                                           need_nnz):
+    """(700, 1301, 96): an awkward leaf layout; one row with P = 270,001
+    crosses into the second noise tile (P > 262,144)."""
+    args, offs = _upload_args(cuda, k, sizes, ratio, sigma, seed=k)
+    before = uf.upload_fused_fleet.launches
+    uk, rk, nk = uf.upload_fused_fleet(*args, boundaries=offs,
+                                       need_nnz=need_nnz)
+    up, rp, npl = uf.upload_fused_plain(*args, boundaries=offs,
+                                        need_nnz=need_nnz)
+    torch.cuda.synchronize()
+    assert uf.upload_fused_fleet.launches == before + 1
+    if need_nnz:
+        assert torch.equal(nk, npl)
+    else:
+        assert nk is None and npl is None
+    if ratio < 1.0:
+        assert torch.equal(rk, rp)
+    if sigma == 0.0:
+        assert torch.equal(uk, up)
+    else:
+        assert float((uk - up).abs().max()) <= 2e-6 * max(1.0, sigma * 1.3)
+
+
+@pytest.mark.parametrize("c,n", [(5, 4097), (1100, 300)])
+def test_window_fold_kernel_matches_plain_bitwise(cuda, c, n):
+    """(1100, 300) spans two of the kernel's 1,024-arrival staging chunks."""
+    rng = np.random.default_rng(c)
+    p = torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+    om = torch.tensor(rng.normal(size=(c, n)).astype(np.float32),
+                      device=cuda)
+    gates = torch.tensor(rng.random(c) < 0.6, device=cuda)
+    b = torch.tensor(rng.random(c).astype(np.float32), device=cuda)
+    a = 1.0 - b
+    before = wf.window_fold_fleet.launches
+    fk, sk = wf.window_fold_fleet(p, om, gates, a, b)
+    fp, sp = wf.window_fold_plain(p, om, gates, a, b)
+    torch.cuda.synchronize()
+    assert wf.window_fold_fleet.launches == before + 1
+    assert torch.equal(fk, fp) and torch.equal(sk, sp)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        uf.upload_fused_fleet(x.double(), None, None, None,
+                              torch.ones(2, device=cuda), 0.0, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        uf.upload_fused_fleet(torch.zeros(8, 2, device=cuda).t(), None, None,
+                              None, torch.ones(2, device=cuda), 0.0, 1.0)
+    with pytest.raises(ValueError, match="p_flat"):
+        wf.window_fold_fleet(torch.zeros(8), x,
+                             torch.ones(2, device=cuda),
+                             torch.ones(2, device=cuda),
+                             torch.ones(2, device=cuda))
+
+
+def _small_run_on_card_and_cpu(sigma, backend):
+    """The same small async run through `api.run` on the card (kernels)
+    and on the CPU (plain versions): equal records, accuracy within
+    1/n_test, params within 1e-4 (the limits `test_torch_api.py` holds the
+    port to the reference with); both kernels launched on the card."""
+    spec = api.ExperimentSpec(
+        fleet=api.FleetSpec(n_nodes=8, model="cnn", hw=(14, 14),
+                            samples_per_node=40, n_test=128, n_cloud_test=64,
+                            attack=api.AttackMix(malicious_frac=0.25)),
+        schedule=api.SchedulePolicy(kind="async"),
+        privacy=api.PrivacySpec(sigma=sigma),
+        compression=api.CompressionSpec(sparsify_ratio=0.1),
+        defense=api.DefenseSpec(detect=True),
+        topology=api.Topology(backend=backend), rounds=2)
+    plan = api.compile_plan(spec)
+    pop = api.materialize(spec, device="cpu")
+    launches = (uf.upload_fused_fleet.launches, wf.window_fold_fleet.launches)
+    r_gpu = api.run(plan, population=pop, device="cuda")
+    assert uf.upload_fused_fleet.launches > launches[0]
+    assert wf.window_fold_fleet.launches > launches[1]
+    r_cpu = api.run(plan, population=pop, device="cpu")
+    for a, b in zip(r_cpu.records, r_gpu.records):
+        assert (a.t, a.version, a.comm_bytes, a.n_rejected) == \
+            (b.t, b.version, b.comm_bytes, b.n_rejected)
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / 128
+    for x, y in zip(tree.leaves(r_cpu.final_params),
+                    tree.leaves(r_gpu.final_params)):
+        assert float((x - y.cpu()).abs().max()) <= 1e-4
+
+
+def test_small_aldpfl_run_on_the_card_matches_the_cpu(cuda):
+    _small_run_on_card_and_cpu(0.05, "pallas")
+
+
+def test_reference_backend_runs_the_kernels_on_the_card(cuda):
+    """backend="reference" (σ=0) takes the same kernel path on the card."""
+    _small_run_on_card_and_cpu(0.0, "reference")
