@@ -21,7 +21,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from ..core import aldp, detection
-from ..net.codecs import CODEC_NAMES, SPARSE_BITPACK_VALUE_BITS
+from ..net.codecs import CODEC_NAMES, SparseBitpack
 from .spec import (SIM_EVENT_KINDS, TRACE_KINDS, ExperimentSpec,
                    apply_sim_event)
 from .window import AutoWindow, FixedWindow, TargetArrivalsWindow
@@ -169,9 +169,9 @@ def compile_plan(spec: ExperimentSpec) -> ExperimentPlan:
     net = spec.network
     _require(net.codec in NET_CODECS,
              f"network.codec {net.codec!r} not in {NET_CODECS}")
-    _require(net.value_bits in SPARSE_BITPACK_VALUE_BITS,
+    _require(net.value_bits in SparseBitpack.VALUE_BITS,
              f"network.value_bits must be one of "
-             f"{SPARSE_BITPACK_VALUE_BITS}, got {net.value_bits}")
+             f"{SparseBitpack.VALUE_BITS}, got {net.value_bits}")
     _require(net.value_bits == 32 or net.codec == "sparse_bitpack",
              f"network.value_bits={net.value_bits} is the sparse_bitpack "
              f"quantized-value variant; codec {net.codec!r} stores f32 "
@@ -495,7 +495,9 @@ def compile_plan(spec: ExperimentSpec) -> ExperimentPlan:
 
 def require_ported(spec: ExperimentSpec, sigma: float) -> None:
     """Raise NotImplementedError for a validated spec that needs a part of
-    the reference the port does not have yet (ROADMAP.md, open items)."""
+    the reference the port does not have yet (ROADMAP.md, open items).
+    Every `network.codec` is ported; the DDoS attack's flood uploads are
+    not."""
     topo, atk = spec.topology, spec.fleet.attack
 
     def missing(what: str, item: str) -> None:
@@ -516,8 +518,6 @@ def require_ported(spec: ExperimentSpec, sigma: float) -> None:
     if atk.malicious_frac > 0 and atk.kind in ("sybil", "adaptive", "ddos"):
         missing(f"fleet.attack.kind={atk.kind!r}",
                 "'Trust defense and delta attacks'")
-    if spec.network.codec != "analytic":
-        missing(f"network.codec={spec.network.codec!r}", "'Network and K3'")
     if spec.obs.enabled:
         missing("obs.enabled", "'Observability'")
     if spec.sim is not None:

@@ -3,8 +3,11 @@
 Port of the fleet-engine half of `repro.api.run`: `make_engine`, the sync
 and async record steppers, `init_state`, `make_stepper`, `execute` and
 `run`.  One record per barrier round (sync) or per n_nodes arrivals
-(async), exactly as the reference emits them.  Everything runs on
-``device`` ("cuda" unless the caller passes "cpu").
+(async), exactly as the reference emits them.  A spec whose
+`NetworkSpec` names a codec attaches a `net.NetSim` to the engine: the
+records then carry encoded bytes (``bytes_source="encoded"``) and
+`RunReport.net` the trace summary.  Everything runs on ``device``
+("cuda" unless the caller passes "cpu").
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from ..core import async_update
 from ..core.accountant import MomentsAccountant
 from ..device import resolve
 from ..fleet import stages as fleet_stages
+from ..net import netsim_from_network
 from .plan import ExperimentPlan, SpecError
 from .population import Population, materialize
 from .report import RoundRecord, RunReport, detection_log
@@ -36,6 +40,7 @@ class RunState:
     residuals: Any
     accountant: Optional[MomentsAccountant]
     history: List[RoundRecord] = field(default_factory=list)
+    net: Optional[dict] = None      # NetTrace summary when a codec ran
 
 
 def init_state(plan: ExperimentPlan, population: Population,
@@ -56,7 +61,8 @@ def init_state(plan: ExperimentPlan, population: Population,
 
 def make_engine(plan: ExperimentPlan, population: Population, device=None):
     """Build the fleet engine a plan selects (sequential PRNG chain,
-    reference/pallas backend, the population's profile/sampler)."""
+    reference/pallas backend, the population's profile/sampler, the
+    network transport when the spec names a codec)."""
     spec = plan.spec
     common = dict(
         local_steps=spec.train.local_steps, batch_size=spec.train.batch_size,
@@ -69,12 +75,15 @@ def make_engine(plan: ExperimentPlan, population: Population, device=None):
         seed=spec.seed)
     args = (population.params, population.loss_fn, population.acc_fn,
             population.node_data, population.test_data, population.cloud_test)
+    n_params = tree_util.size(population.params)
+    net = netsim_from_network(
+        spec.network, population.profile.bandwidth_bps, n_params,
+        sparsify_ratio=spec.compression.sparsify_ratio, seed=spec.seed)
     if plan.mode == "sync":
         return fleet.FleetEngine(
             *args, fleet.FleetConfig(**common), profile=population.profile,
             sampler=population.sampler or fleet.FullParticipation(),
-            device=device)
-    n_params = tree_util.size(population.params)
+            net=net, device=device)
     bpn = fleet_stages.bytes_per_node(n_params,
                                       spec.compression.sparsify_ratio)
     cfg = fleet.AsyncFleetConfig(
@@ -86,7 +95,8 @@ def make_engine(plan: ExperimentPlan, population: Population, device=None):
         detect_warmup=spec.defense.detect_warmup,
         detect_window=plan.detect_window)
     return fleet.AsyncFleetEngine(*args, cfg, profile=population.profile,
-                                  sampler=population.sampler, device=device)
+                                  sampler=population.sampler, net=net,
+                                  device=device)
 
 
 class _SyncFleetStepper:
@@ -94,6 +104,7 @@ class _SyncFleetStepper:
 
     def __init__(self, plan, pop, state, eng):
         self.plan, self.pop, self.state, self.eng = plan, pop, state, eng
+        self.src = "encoded" if eng.net is not None else "analytic"
         eng.load_state(state.residuals, state.key)
         self.emitted = 0
 
@@ -109,7 +120,7 @@ class _SyncFleetStepper:
         state.params = eng.params
         state.history.append(RoundRecord(
             rec.t, self.emitted, rec.accuracy, rec.comm_bytes, rec.comp_time,
-            rec.comm_time, rec.n_rejected))
+            rec.comm_time, rec.n_rejected, bytes_source=self.src))
         self.emitted += 1
 
     def finalize(self) -> None:
@@ -124,6 +135,7 @@ class _AsyncFleetStepper:
     def __init__(self, plan, pop, state, eng):
         self.plan, self.pop, self.state, self.eng = plan, pop, state, eng
         self.n = pop.n_nodes
+        self.src = "encoded" if eng.net is not None else "analytic"
         eng.load_state(state.residuals, state.key)
         self.emitted = 0
         self.processed = 0
@@ -151,7 +163,7 @@ class _AsyncFleetStepper:
             span_rejected += rec.n_rejected
         state.history.append(RoundRecord(
             rec.t, rec.version, eng.global_accuracy(), span_bytes, span_comp,
-            span_comm, span_rejected))
+            span_comm, span_rejected, bytes_source=self.src))
         self.emitted += 1
 
     def finalize(self) -> None:
@@ -162,6 +174,8 @@ def _fleet_handback(state: RunState, eng) -> None:
     """Hand node-local state back so follow-on runs stay faithful."""
     state.key = eng.state.chain_key
     state.residuals = eng.export_residuals()
+    if eng.net is not None:
+        state.net = eng.net.summary()
 
 
 def make_stepper(plan: ExperimentPlan, population: Population,
@@ -212,4 +226,5 @@ def run(plan: ExperimentPlan, population: Optional[Population] = None,
         final_accuracy=records[-1].accuracy if records else 0.0,
         detections=detection_log(records),
         spec=plan.spec.to_dict(),
+        net=state.net,
         final_params=state.params)

@@ -16,32 +16,18 @@
 // in shared memory, and nnz reduced by warp shuffles then one integer
 // atomicAdd per block (integer atomics keep the count exact).
 //
-// Noise indexing: the TPU kernel draws element e of its (256 x 1024) tile b
-// from hash(seed + b*7919, e).  Here a flat position p maps to b = p / 2^18
-// and e = p % 2^18 directly, so the stream is the TPU's without its padding.
+// Noise: the TPU kernel's counter-hash Box–Muller stream, from the header
+// this kernel shares with ldp_noise.cu (K5), so the fused pass and the
+// unfused sparsify -> nnz -> ldp_noise chain give the same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ldp_hash.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxLeaves = 64;
-constexpr int kNoiseBlock = 256 * 1024;
-
-__device__ __forceinline__ uint32_t murmur(uint32_t e, int32_t blk_seed,
-                                           uint32_t stream) {
-  uint32_t x = e + (uint32_t)blk_seed * 2654435761u + stream * 0x9E3779B9u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float unit(uint32_t x) {
-  return __fmul_rn((float)(x >> 8), 1.0f / 16777216.0f);  // exact
-}
 
 template <bool kSparsify, bool kLdp, bool kNoise, bool kNnz>
 __global__ void __launch_bounds__(kThreads)
@@ -81,17 +67,7 @@ upload_fused_kernel(const float* __restrict__ flat,
     if (kNnz) cnt = (u != 0.0f);
     if (kLdp) {
       u = __fmul_rn(u, scales[node]);
-      if (kNoise) {
-        const int blk = p / kNoiseBlock;
-        const uint32_t e = (uint32_t)(p - blk * kNoiseBlock);
-        const int32_t blk_seed =
-            (int32_t)((uint32_t)seeds[node] + (uint32_t)blk * 7919u);
-        const float u1 = fmaxf(unit(murmur(e, blk_seed, 1u)), 1e-12f);
-        const float u2 = unit(murmur(e, blk_seed, 2u));
-        const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
-        const float theta = __fmul_rn(6.2831854820251465f, u2);
-        u = __fadd_rn(u, __fmul_rn(__fmul_rn(sigma_s, r), cosf(theta)));
-      }
+      if (kNoise) u = repro_ldp::ldp_add_noise(u, sigma_s, seeds[node], p);
     }
     up_out[at] = u;
   }

@@ -15,6 +15,11 @@ clocks and dispatched models live on the device; each window
   4. redispatches each processed node with the model right after its own
      arrival and advances its clock by uplink + compute time.
 
+With a `net.NetSim` attached, each window's uplink seconds are the link
+model's draws for the in-window uploads (so the network moves the clocks,
+and with them the arrival order and later windows' composition), and the
+uploads' measured nonzero counts are priced through the wire codec.
+
 With the auto window (min node compute time) arrivals are handled in the
 event loop's global time order, and the masked key chain is consumed as
 the reference consumes it.  The buffered (FedBuff) fold is not ported
@@ -131,12 +136,14 @@ class AsyncFleetEngine:
     """Event-driven async FEL over a stacked node fleet, one window per
     step, on one device (``device="cuda"`` by default).  ``sampler``
     models churn: an unavailable node loses its in-window upload (no mix,
-    no detection entry) but is redispatched."""
+    no detection entry) but is redispatched.  ``net`` is an optional
+    `net.NetSim`."""
 
     def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
                  node_data, test_data, cloud_test, cfg: AsyncFleetConfig,
                  profile: Optional[NodeProfile] = None,
-                 sampler: Optional[ClientSampler] = None, device=None):
+                 sampler: Optional[ClientSampler] = None, net=None,
+                 device=None):
         check_ported(cfg)
         if cfg.mixing != "sequential":
             raise NotImplementedError(
@@ -144,6 +151,7 @@ class AsyncFleetEngine:
                 f"yet (ROADMAP.md, 'Buffered fold')")
         self.device = resolve(device)
         self.cfg = cfg
+        self.net = net
         self.params = tree_util.map(lambda x: x.to(self.device), init_params)
         self.loss_fn = loss_fn
         self.acc_fn = acc_fn
@@ -186,11 +194,12 @@ class AsyncFleetEngine:
         comp_s = torch.as_tensor(self._comp_s.astype(np.float32),
                                  device=self.device)
         data, dev = self.data, self.device
+        need_nnz = self.net is not None     # byte-accurate pricing only
 
         def window_fn(params, state, order, proc, avail, up_s):
             """order: node ids sorted by (arrival, id), truncated to the
             power-of-two bucket; proc: in-window flags; avail: churn mask;
-            up_s: per-slot uplink seconds."""
+            up_s: per-slot uplink seconds (f32)."""
             order_t = torch.as_tensor(order, dtype=torch.int64, device=dev)
             t_arr = state.next_arrival.index_select(0, order_t)
             vdisp_c = state.dispatched_version.index_select(
@@ -208,8 +217,10 @@ class AsyncFleetEngine:
             local = local_train(disp_c, data.x, data.y, order_t, bidx)
             deltas = tree_util.map(lambda l, d: l - d.to(l.dtype), local,
                                    disp_c)
-            deltas, res_c, _ = stages.upload_pipeline(cfg, deltas, res_c,
-                                                      k2s)
+            deltas, res_c, nnz = stages.upload_pipeline(
+                cfg, deltas, res_c, k2s, need_nnz=need_nnz)
+            if need_nnz:    # lands with the accuracies the control scan
+                nnz = nnz.to("cpu", non_blocking=True)      # brings back
             omegas, accs = stages.rebuild_and_evaluate(
                 acc_fn, disp_c, deltas, cloud_x, cloud_y)
 
@@ -237,6 +248,8 @@ class AsyncFleetEngine:
             metrics = {
                 "n_rejected": int((ctl.rej & arrived).sum()),
                 "max_staleness": int(np.where(arrived, ctl.taus, 0).max())}
+            if need_nnz:
+                metrics["nnz"] = nnz.numpy()
             return params, new_state, metrics
 
         return window_fn
@@ -273,17 +286,32 @@ class AsyncFleetEngine:
         else:
             avail = np.ones(order.size, bool)
         sel = order[proc]
-        up_s = self._comm_s[order].astype(np.float32)
+        draw = None
+        if self.net is not None:
+            # one link draw per in-window upload, in arrival order; the
+            # other slots never scatter a clock
+            draw = self.net.draw(sel)
+            up_host = np.zeros(order.size, np.float64)
+            up_host[proc] = draw.transfer_s
+        else:
+            up_host = self._comm_s[order]
         self.params, self.state, m = self._window_fn(
-            self.params, self.state, order, proc, avail, up_s)
+            self.params, self.state, order, proc, avail,
+            up_host.astype(np.float32))
         self._window_idx = w + 1
-        uplink = self._comm_s[sel]
+        if self.net is not None:
+            enc = self.net.commit(draw, m["nnz"][proc])
+            uplink = draw.transfer_s
+            comm_bytes = float(enc.sum())
+        else:
+            uplink = self._comm_s[sel]
+            comm_bytes = float(self._bpn * sel.size)
         t_arrive = t_arr[proc] + uplink
         rec = AsyncWindowRecord(
             t=float(t_arrive.max()) if sel.size else 0.0,
             window=w, version=int(self.state.version),
             accuracy=self.global_accuracy() if evaluate else float("nan"),
-            comm_bytes=float(self._bpn * sel.size),
+            comm_bytes=comm_bytes,
             comp_time=float(self._comp_s[sel].sum()),
             comm_time=float(uplink.sum()),
             n_processed=int(sel.size), n_rejected=m["n_rejected"],

@@ -9,7 +9,9 @@ over the whole cohort at once: `torch.func.vmap` of the local-SGD step
 over nodes, the fused upload kernel over the flattened cohort, and the
 cohort's residual rows written back in place.  The PRNG chain and the
 minibatch draws are the reference's (`prng`), so with equal params the
-two engines train on the same batches.
+two engines train on the same batches.  With a `net.NetSim` attached,
+each round's measured nonzero counts are priced through the wire codec
+and the link model's transfer times replace the analytic uplink.
 """
 from __future__ import annotations
 
@@ -183,15 +185,17 @@ class FleetEngine:
     Args: init_params (dict of tensors), loss_fn (params, batch) -> (loss,
     aux), acc_fn (params, x, y) -> accuracy, node_data (list of numpy
     (x, y) shards or a `FleetData`), test_data, cloud_test, cfg, profile,
-    sampler — as in the reference."""
+    sampler, net (an optional `net.NetSim`) — as in the reference."""
 
     def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
                  node_data, test_data, cloud_test, cfg: FleetConfig,
                  profile: Optional[NodeProfile] = None,
-                 sampler: Optional[ClientSampler] = None, device=None):
+                 sampler: Optional[ClientSampler] = None, net=None,
+                 device=None):
         check_ported(cfg)
         self.device = resolve(device)
         self.cfg = cfg
+        self.net = net
         self.params = tree_util.map(lambda x: x.to(self.device), init_params)
         self.loss_fn = loss_fn
         self.acc_fn = acc_fn
@@ -224,6 +228,7 @@ class FleetEngine:
         local_train = stages.make_local_train(self.loss_fn, cfg.local_steps,
                                               cfg.lr, cfg.batch_size)
         data, dev = self.data, self.device
+        need_nnz = self.net is not None     # byte-accurate pricing only
 
         def round_fn(params, residuals, chain_key, idx, valid):
             c = idx.shape[0]
@@ -240,8 +245,10 @@ class FleetEngine:
                                 idx_t, bidx)
             deltas = tree_util.map(lambda l, g: l - g[None].to(l.dtype),
                                    local, params)
-            deltas, res_c, _ = stages.upload_pipeline(cfg, deltas, res_c,
-                                                      k2s)
+            deltas, res_c, nnz = stages.upload_pipeline(
+                cfg, deltas, res_c, k2s, need_nnz=need_nnz)
+            if need_nnz:            # lands by the time the mask is read
+                nnz = nnz.to("cpu", non_blocking=True)
             omegas, accs = stages.rebuild_and_evaluate(
                 acc_fn, params, deltas, cloud_x, cloud_y)
             if cfg.detect:
@@ -255,8 +262,10 @@ class FleetEngine:
             keep = torch.as_tensor(np.flatnonzero(valid), device=dev)
             tree_util.map(lambda full, part: full.index_copy_(
                 0, idx_t[keep], part[keep]), residuals, res_c)
-            return new_params, residuals, chain_key, {
-                "accs": accs, "mask": mask, "thr": thr}
+            m = {"accs": accs, "mask": mask, "thr": thr}
+            if need_nnz:
+                m["nnz"] = nnz
+            return new_params, residuals, chain_key, m
 
         return round_fn
 
@@ -273,10 +282,21 @@ class FleetEngine:
         n_rejected = int((valid & ~m["mask"].cpu().numpy()).sum())
         bpn = self.bytes_per_node()
         comp, comm = self.profile.round_times(idx, valid, bpn)
+        comm_bytes = bpn * n_part
+        if self.net is not None:
+            # byte-accurate path: each participant's measured nonzero
+            # count priced through the codec (nnz is in cohort order); the
+            # link draws replace the analytic uplink and the barrier waits
+            # on the slowest upload
+            sel_nodes = idx[valid]
+            draw = self.net.draw(sel_nodes)
+            enc = self.net.commit(draw, m["nnz"].numpy()[valid])
+            comm = float(draw.transfer_s.max()) if sel_nodes.size else 0.0
+            comm_bytes = float(enc.sum())
         t_prev = self.history[-1].t if self.history else self._t0
         rec = FleetRoundRecord(
             t=t_prev + comp + comm, round=r,
-            accuracy=self.global_accuracy(), comm_bytes=bpn * n_part,
+            accuracy=self.global_accuracy(), comm_bytes=comm_bytes,
             comp_time=comp, comm_time=comm, n_participating=n_part,
             n_rejected=n_rejected)
         self.history.append(rec)

@@ -5,10 +5,15 @@ Port of `repro.fleet.stages`:
   local SGD -> delta -> [DGC accumulate+sparsify] -> [ALDP clip+noise]
             -> rebuild node models -> cloud-side accuracy
 
-The upload runs the hand-written fused kernel `kernels.upload_fused` on
-both spec backends: at σ=0 (the only "reference" setting the port takes)
-its keep set, residual' and nnz are bitwise the reference backend's
-per-leaf DGC split, since both use `leaf_threshold` and |c| >= thr.
+The upload runs the hand-written fused kernel `kernels.upload_fused` (K1)
+on both spec backends: at σ=0 (the only "reference" setting the port
+takes) its keep set, residual' and nnz are bitwise the reference
+backend's per-leaf DGC split, since both use `leaf_threshold` and
+|c| >= thr.  When a network codec prices the wire and neither sparsify
+nor noise runs, the nonzero count is kernel K3 (`count_upload_nnz`).
+The unfused chain `sparsify_pallas_cohort` (K4) -> `count_upload_nnz`
+(K3) -> `aldp_pallas_cohort` (K5) is the comparator K1 is held against
+bit for bit.
 """
 from __future__ import annotations
 
@@ -64,20 +69,21 @@ def batch_indices(k1s: np.ndarray, sizes: np.ndarray, local_steps: int,
 def upload_pipeline(cfg, deltas, residuals_c, k2s: np.ndarray,
                     need_nnz: bool = False):
     """[DGC accumulate+sparsify] -> [ALDP clip+noise] over a stacked cohort
-    as one `upload_fused_fleet` launch over the flattened cohort.  The
+    as one `upload_fused_fleet` launch (K1) over the flattened cohort.  The
     per-leaf quantile thresholds and the post-sparsify L2 clip norms stay
     a PyTorch pre-pass here, as they stay a jnp pre-pass in the reference.
-    Returns (uploaded deltas, updated cohort residuals, nnz or None)."""
+    With neither sparsify nor noise there is nothing to compute per
+    element: the deltas pass through and ``need_nnz`` counts them with K3
+    (`count_upload_nnz`).  The count is post-sparsify, pre-noise: the
+    sparse coordinate set the codecs price.  Returns (uploaded deltas,
+    updated cohort residuals, nnz (C,) int32 or None)."""
     from ..kernels import upload_fused as uf
 
     do_sparsify = cfg.sparsify_ratio < 1.0
     apply_ldp = cfg.sigma > 0.0
     if not (do_sparsify or apply_ldp):
-        if need_nnz:
-            raise NotImplementedError(
-                "a wire nonzero count without sparsify or noise runs kernel "
-                "K3 (nnz_fleet), not ported yet (ROADMAP.md, 'Network')")
-        return deltas, residuals_c, None
+        nnz = count_upload_nnz(deltas) if need_nnz else None
+        return deltas, residuals_c, nnz
     layout = cohort_layout(deltas)
     flat_d = layout.flatten(deltas)
     thresholds = flat_r = comb = None
@@ -108,6 +114,15 @@ def upload_pipeline(cfg, deltas, residuals_c, k2s: np.ndarray,
     if do_sparsify:
         residuals_c = layout.unflatten(newr)
     return deltas, residuals_c, nnz
+
+
+def count_upload_nnz(deltas, backend: str = "reference") -> torch.Tensor:
+    """Per-node nonzero count of a stacked upload tree — the wire quantity
+    the sparse codecs price: the cohort flattened with `cohort_layout`,
+    then one K3 launch (`net.codecs.count_nnz`) on either backend (the
+    reference's per-leaf sums give the same integers)."""
+    from ..net.codecs import count_nnz
+    return count_nnz(cohort_layout(deltas).flatten(deltas), backend)
 
 
 def rebuild_and_evaluate(acc_fn, start_params, deltas, cloud_x, cloud_y):
@@ -187,6 +202,52 @@ def cohort_layout(tree) -> CohortLayout:
     offsets = tuple(int(o) for o in np.concatenate(
         [[0], np.cumsum(sizes)[:-1]]))
     return CohortLayout(tree, shapes, sizes, offsets, int(sum(sizes)))
+
+
+def flatten_cohort(tree):
+    """Stacked tree with leading cohort axis -> ((C, P) flat, unflatten)."""
+    layout = cohort_layout(tree)
+    return layout.flatten(tree), layout.unflatten
+
+
+# ---------------------------------------------------------------------------
+# the unfused upload chain (K4 -> K3 -> K5), K1's comparator
+# ---------------------------------------------------------------------------
+
+def sparsify_pallas_cohort(deltas, residuals, ratio: float):
+    """Per-leaf DGC split with the node-batched `sparsify_fleet` kernel
+    (K4): the per-leaf quantile threshold of `accumulator.leaf_threshold`,
+    one launch per leaf for the whole cohort.  Returns (upload tree,
+    residual' tree)."""
+    from ..kernels.sparsify import sparsify_fleet
+
+    def one_leaf(d, r):
+        c = d.shape[0]
+        df = d.reshape(c, -1).to(torch.float32)
+        rf = r.reshape(c, -1).to(torch.float32)
+        thr = accum.leaf_threshold(df + rf, ratio)
+        up, newr = sparsify_fleet(df, rf, thr)
+        return up.reshape(d.shape).to(d.dtype), newr.reshape(r.shape)
+
+    pairs = [one_leaf(d, r) for d, r in zip(tree_util.leaves(deltas),
+                                            tree_util.leaves(residuals))]
+    return (tree_util.unflatten_like(deltas, [p[0] for p in pairs]),
+            tree_util.unflatten_like(residuals, [p[1] for p in pairs]))
+
+
+def aldp_pallas_cohort(deltas, k2s: np.ndarray, sigma: float, clip_s: float):
+    """Cohort ALDP with the node-batched `ldp_perturb_fleet` kernel (K5),
+    one launch per cohort: whole-delta clip scale per node, noise seeded
+    by `prng.node_noise_seeds` of the per-node keys."""
+    from ..kernels.ldp_noise import ldp_perturb_fleet
+
+    layout = cohort_layout(deltas)
+    flat = layout.flatten(deltas)
+    norms = torch.sqrt(torch.sum(torch.square(flat), dim=1))
+    scales = 1.0 / torch.clamp(norms / clip_s, min=1.0)
+    seeds = torch.as_tensor(prng.node_noise_seeds(k2s), device=flat.device)
+    return layout.unflatten(ldp_perturb_fleet(flat, seeds, scales, sigma,
+                                              clip_s))
 
 
 # ---------------------------------------------------------------------------

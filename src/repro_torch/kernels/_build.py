@@ -3,8 +3,8 @@
 Each source in ``csrc/`` compiles on its own into
 ``build/kernels/lib<name>_<hash>.so`` at the repository root, for
 ``sm_90a``, with a plain C interface.  The file name carries a hash of the
-source, so an edited kernel is rebuilt and a stale library is never
-loaded.  Several sources build in parallel, one nvcc process each.
+source and of the shared headers (``csrc/*.cuh``), so an edited kernel is
+rebuilt and a stale library is never loaded.  Several sources build in parallel, one nvcc process each.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("upload_fused", "window_fold")
+KERNELS = ("upload_fused", "window_fold", "wire_bytes", "sparsify",
+           "ldp_noise")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,6 +40,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
@@ -104,3 +106,22 @@ def check(rc: int, lib: ctypes.CDLL, fn: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``: every kernel launches
+    on it."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require(kernel: str, name: str, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: a kernel takes nothing else."""
+    shape = tuple(shape)
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{kernel}: {name} must be {dtype} {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")

@@ -6,55 +6,21 @@ kernel in ``csrc/upload_fused.cu`` (one pass over the (C, N) cohort), on
 CPU tensors it runs `upload_fused_plain`, the PyTorch version of the same
 arithmetic (the reference's `upload_fused_reference` + `block_noise`).
 
-The noise is the reference kernel's counter-hash Box–Muller stream: node
-i draws element e of TPU tile b (a tile is 256 × 1024 flat positions)
-from murmur(e + u32(seed_i + b·7919)·2654435761 + stream·0x9E3779B9).
-The hash runs in int64 masked to 32 bits.
+The noise is the reference kernel's counter-hash Box–Muller stream
+(`kernels.ldp_noise.block_noise`, the stream K5 draws): node i draws
+element e of TPU tile b (a tile is 256 × 1024 flat positions) from
+murmur(e + u32(seed_i + b·7919)·2654435761 + stream·0x9E3779B9).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
-
-TILE = 256 * 1024           # the TPU kernel's (256, 1024) block
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
-    """(a * b) mod 2^32 for a in [0, 2^32) without int64 overflow."""
-    return ((a * (b & 0xFFFF)) + (((a * (b >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def block_noise(seeds: torch.Tensor, n: int, sigma_s: float) -> torch.Tensor:
-    """The reference kernel's per-tile Box–Muller noise for every node row:
-    seeds (C,) int32 -> (C, n) float32 (σS-scaled)."""
-    dev = seeds.device
-    p = torch.arange(n, dtype=torch.int64, device=dev)
-    blk = p // TILE
-    e = p % TILE
-    tiles = torch.arange(max(1, -(-n // TILE)), dtype=torch.int64, device=dev)
-    blk_seed = (seeds.to(torch.int64)[:, None] + tiles[None] * 7919) & _M32
-    base = _mul32(blk_seed, 2654435761)                     # (C, nb)
-
-    def uniform(stream: int) -> torch.Tensor:
-        x = (e[None] + base[:, blk] + ((stream * 0x9E3779B9) & _M32)) & _M32
-        x = x ^ (x >> 16)
-        x = _mul32(x, 0x7FEB352D)
-        x = x ^ (x >> 15)
-        x = _mul32(x, 0x846CA68B)
-        x = x ^ (x >> 16)
-        return (x >> 8).to(torch.float32) / float(1 << 24)
-
-    u1 = torch.clamp(uniform(1), min=1e-12)
-    u2 = uniform(2)
-    r = torch.sqrt(-2.0 * torch.log(u1))
-    return sigma_s * r * torch.cos((2.0 * math.pi) * u2)
+from .ldp_noise import block_noise
 
 
 def spread_thresholds(thresholds: torch.Tensor, boundaries: Sequence[int],
@@ -111,15 +77,6 @@ def _leaf_starts(boundaries: Tuple[int, ...], device: torch.device
     return torch.tensor(boundaries, dtype=torch.int32, device=device)
 
 
-def _check(t, name, shape, dtype, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"upload_fused: {name} must be {dtype} {shape} on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
-                         f"{t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"upload_fused: {name} must be contiguous")
-
-
 def upload_fused_fleet(flat: torch.Tensor,
                        residuals: Optional[torch.Tensor],
                        thresholds: Optional[torch.Tensor],
@@ -149,17 +106,18 @@ def upload_fused_fleet(flat: torch.Tensor,
     sigma_s = float(sigma) * float(clip_s) if apply_ldp else 0.0
     if not 1 <= c <= 65535:
         raise ValueError(f"upload_fused: cohort size {c} outside [1, 65535]")
-    _check(flat, "flat", (c, n), torch.float32, dev)
+    check = functools.partial(_build.require, "upload_fused")
+    check("flat", flat, (c, n), torch.float32, dev)
     bounds = None
     if do_sparsify:
-        _check(residuals, "residuals", (c, n), torch.float32, dev)
-        _check(thresholds, "thresholds", (c, len(boundaries)), torch.float32,
-               dev)
+        check("residuals", residuals, (c, n), torch.float32, dev)
+        check("thresholds", thresholds, (c, len(boundaries)), torch.float32,
+              dev)
         bounds = _leaf_starts(tuple(int(b) for b in boundaries), dev)
     if sigma_s > 0.0:
-        _check(seeds, "seeds", (c,), torch.int32, dev)
+        check("seeds", seeds, (c,), torch.int32, dev)
     if apply_ldp:
-        _check(clip_scales, "clip_scales", (c,), torch.float32, dev)
+        check("clip_scales", clip_scales, (c,), torch.float32, dev)
     lib = _configure(_build.load("upload_fused"))
     up = torch.empty_like(flat)
     newr = torch.empty_like(flat) if do_sparsify else None
@@ -171,8 +129,7 @@ def upload_fused_fleet(flat: torch.Tensor,
         p(flat), p(residuals), p(thresholds), p(bounds),
         len(boundaries), p(seeds if sigma_s > 0.0 else None),
         p(clip_scales), ctypes.c_float(sigma_s), p(up), p(newr), p(nnz),
-        c, n, flags,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        c, n, flags, _build.stream(dev))
     _build.check(rc, lib, "upload_fused_error_string")
     upload_fused_fleet.launches += 1
     return up, newr, nnz

@@ -57,16 +57,10 @@ def window_fold_fleet(p_flat: torch.Tensor, om_flat: torch.Tensor,
     c, n = om_flat.shape
     if c < 1:
         raise ValueError("window_fold: empty window")
-    for name, t, shape, dtype in (("p_flat", p_flat, (n,), torch.float32),
-                                  ("om_flat", om_flat, (c, n), torch.float32),
-                                  ("a", a, (c,), torch.float32),
-                                  ("b", b, (c,), torch.float32)):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"window_fold: {name} must be {dtype} {shape} "
-                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"window_fold: {name} must be contiguous")
+    for name, t, shape in (("p_flat", p_flat, (n,)),
+                           ("om_flat", om_flat, (c, n)), ("a", a, (c,)),
+                           ("b", b, (c,))):
+        _build.require("window_fold", name, t, shape, torch.float32, dev)
     if gates.device != dev or tuple(gates.shape) != (c,):
         raise ValueError(f"window_fold: gates must be ({c},) on {dev}")
     gates = gates.to(torch.int32).contiguous()
@@ -76,7 +70,7 @@ def window_fold_fleet(p_flat: torch.Tensor, om_flat: torch.Tensor,
     p = _build.ptr
     rc = lib.window_fold_launch(
         p(p_flat), p(om_flat), p(gates), p(a), p(b), p(seq), p(out), c, n,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _build.stream(dev))
     _build.check(rc, lib, "window_fold_error_string")
     window_fold_fleet.launches += 1
     return out, seq

@@ -100,7 +100,10 @@ UNPORTED = [
         malicious_frac=0.2, kind="sybil"))),
     lambda m: m.ExperimentSpec(fleet=m.FleetSpec(attack=m.AttackMix(
         malicious_frac=0.2, kind="adaptive"))),
-    lambda m: m.ExperimentSpec(network=m.NetworkSpec(codec="dense_f32")),
+    lambda m: m.ExperimentSpec(
+        fleet=m.FleetSpec(attack=m.AttackMix(malicious_frac=0.2,
+                                             kind="ddos")),
+        network=m.NetworkSpec(codec="sparse_coo", shared_uplink_bps=1e6)),
     lambda m: m.ExperimentSpec(obs=m.ObsSpec(enabled=True)),
     lambda m: m.ExperimentSpec(sim=m.SimSpec()),
     lambda m: m.ExperimentSpec(privacy=m.PrivacySpec(sigma=0.1)),
@@ -113,6 +116,31 @@ def test_unported_features_raise_not_implemented(case):
     japi.compile_plan(ref)                  # valid for the reference
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.compile_plan(port)
+
+
+def _full_network(m):
+    return m.NetworkSpec(codec="sparse_bitpack", value_bits=16,
+                         bandwidth_sigma=0.5, latency_s=0.01, jitter_s=0.2,
+                         loss_prob=0.1, mtu_bytes=700,
+                         shared_uplink_bps=3e6)
+
+
+def test_network_spec_round_trips_and_compiles():
+    """Every `NetworkSpec` field set: the reference's JSON loads in the
+    port and round-trips, and `compile_plan` takes every real codec."""
+    ref = japi.ExperimentSpec(schedule=japi.SchedulePolicy(kind="async"),
+                              network=_full_network(japi))
+    loaded = tapi.ExperimentSpec.from_json(ref.to_json())
+    assert loaded.network == _full_network(tapi)
+    assert loaded.to_dict() == ref.to_dict()
+    for codec in tapi.NET_CODECS:
+        if codec == "analytic":
+            continue
+        spec = tapi.ExperimentSpec(network=tapi.NetworkSpec(codec=codec))
+        plan = tapi.compile_plan(spec)
+        assert plan.net_codec == codec == japi.compile_plan(
+            japi.ExperimentSpec(network=japi.NetworkSpec(
+                codec=codec))).net_codec
 
 
 def _small(m, kind, sigma, backend):
@@ -159,6 +187,65 @@ def test_small_runs_match_reference(kind, sigma, backend):
     assert tapi.RunReport.from_json(rt.to_json()).records == rt.records
 
 
+LOSSY_INDUSTRIAL = dict(codec="sparse_bitpack", bandwidth_sigma=1.0,
+                        latency_s=0.02, jitter_s=0.1, loss_prob=0.2)
+CONGESTED_COO = dict(codec="sparse_coo", latency_s=0.02,
+                     shared_uplink_bps=25e6)
+
+
+@pytest.mark.parametrize("kind,sigma,ratio,detect,network", [
+    # (a) ALDPFL over the lossy_industrial link of benchmarks/net_sweep.py
+    ("async", 0.05, 0.1, True, LOSSY_INDUSTRIAL),
+    # (b) the FL baseline (no sparsify, no noise, no detection) over a
+    # shared uplink: the wire count is K3's
+    ("sync", 0.0, 1.0, False, CONGESTED_COO)])
+def test_small_network_runs_match_reference(kind, sigma, ratio, detect,
+                                            network):
+    """Equal t, version, comm_bytes, comm_time, n_rejected, bytes_source
+    and `RunReport.net`; accuracy within 1/n_test; final params within
+    1e-4; the records' bytes sum to the trace's encoded bytes."""
+    def build(m):
+        return m.ExperimentSpec(
+            fleet=m.FleetSpec(n_nodes=8, model="cnn", hw=(14, 14),
+                              samples_per_node=40, n_test=128,
+                              n_cloud_test=64,
+                              attack=m.AttackMix(malicious_frac=0.25)),
+            schedule=m.SchedulePolicy(kind=kind),
+            privacy=m.PrivacySpec(sigma=sigma),
+            compression=m.CompressionSpec(sparsify_ratio=ratio),
+            defense=m.DefenseSpec(detect=detect),
+            network=m.NetworkSpec(**network),
+            topology=m.Topology(backend="pallas"), rounds=2)
+
+    ref_spec = build(japi)
+    pj = japi.materialize(ref_spec)
+    rj = japi.run(japi.compile_plan(ref_spec), population=pj)
+    loss_fn, acc_fn = tapi.model_fns("cnn")
+    pt = tapi.Population(
+        params=convert.to_torch(pj.params), loss_fn=loss_fn, acc_fn=acc_fn,
+        node_data=pj.node_data, test_data=pj.test_data,
+        cloud_test=pj.cloud_test, profile=pj.profile,
+        malicious_ids=pj.malicious_ids)
+    port_spec = tapi.ExperimentSpec.from_json(ref_spec.to_json())
+    assert port_spec == build(tapi)
+    rt = tapi.run(tapi.compile_plan(port_spec), population=pt, device="cpu")
+    assert len(rj.records) == len(rt.records) == 2
+    for a, b in zip(rj.records, rt.records):
+        assert (a.t, a.version, a.comm_bytes, a.comm_time, a.n_rejected,
+                a.bytes_source) == (b.t, b.version, b.comm_bytes,
+                                    b.comm_time, b.n_rejected,
+                                    b.bytes_source)
+        assert b.bytes_source == "encoded"
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / 128
+    assert rt.net == rj.net
+    assert sum(r.comm_bytes for r in rt.records) == rt.net["encoded_bytes"]
+    for a, b in zip(jax.tree.leaves(rj.final_params),
+                    tree.leaves(rt.final_params)):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0,
+                                   atol=1e-4)
+    assert tapi.RunReport.from_json(rt.to_json()).net == rt.net
+
+
 def test_run_needs_a_card_unless_cpu_is_asked_for():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -183,6 +270,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.fleet.async_engine' in sys.modules\n"
+        "assert 'repro_torch.net.bridge' in sys.modules\n"
+        "assert 'repro_torch.kernels.ops' in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -136,22 +136,23 @@ def test_masked_mean_and_fallback():
 
 @pytest.mark.parametrize("alpha", [0.5, 0.3, 0.9])
 def test_mix_and_mix_stale(alpha):
-    """`mix` is bitwise.  `staleness_alpha`'s power differs from XLA's by
-    at most 1 ulp (the two libraries approximate pow differently), which
-    the (1 − α) scale turns into at most 2 ulps of the weight; given equal
-    weights `mix_stale` is bitwise."""
+    """`mix` is bitwise.  `staleness_alpha` is bitwise XLA's compiled
+    weight for every integer τ in 0..19,999 and every exponent a tested
+    (a = 1 is the pow(x, −1) -> 1/x rewrite); `mix_stale` is bitwise."""
     rng = np.random.default_rng(4)
     g = rng.normal(size=(300,)).astype(np.float32)
     n = rng.normal(size=(300,)).astype(np.float32)
     ref = jasync.mix({"w": jnp.asarray(g)}, {"w": jnp.asarray(n)}, alpha)
     out = tasync.mix({"w": torch.tensor(g)}, {"w": torch.tensor(n)}, alpha)
     np.testing.assert_array_equal(np.asarray(ref["w"]), out["w"].numpy())
+    taus = np.arange(20000)
+    for a in (0.5, 0.3, 0.75, 1.0):
+        wj = np.asarray(jax.jit(lambda t, a=a: jasync.staleness_alpha(
+            alpha, t, a))(jnp.asarray(taus, jnp.int32)))
+        wt = np.array([tasync.staleness_alpha(alpha, int(t), a).numpy()
+                       for t in taus], np.float32)
+        np.testing.assert_array_equal(wt.view(np.int32), wj.view(np.int32))
     for tau in range(0, 200):
-        wj = np.asarray(jasync.staleness_alpha(alpha, tau, 0.5))
-        wt = tasync.staleness_alpha(alpha, tau, 0.5).numpy()
-        assert abs(wj - wt) <= 2 * np.spacing(wj)
-        if wj != wt:
-            continue
         ref = jasync.mix_stale({"w": jnp.asarray(g)}, {"w": jnp.asarray(n)},
                                alpha, tau)
         out = tasync.mix_stale({"w": torch.tensor(g)},

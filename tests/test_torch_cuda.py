@@ -9,15 +9,20 @@ so it runs on a machine that has only PyTorch:
 Tolerances: K1's residual', keep set and nnz bitwise, its noised upload
 within 2e-6 · max(1, σS) (the noise's log/cos are libm's in the kernel and
 PyTorch's CUDA math in the plain version); K2 bitwise (both compute each
-gated step as one fma(a, cur, b·ω)).
+gated step as one fma(a, cur, b·ω)); K3 equal; K4 bitwise as int32 views;
+K5 within 2e-6 · max(1, σS), as K1; K1 against the K4 -> K3 -> K5 kernel
+chain bitwise (one noise header, the same rounded operations).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import api, tree
+from repro_torch.kernels import ldp_noise as ldp
+from repro_torch.kernels import sparsify as sp
 from repro_torch.kernels import upload_fused as uf
 from repro_torch.kernels import window_fold as wf
+from repro_torch.kernels import wire_bytes as wb
 
 pytestmark = pytest.mark.cuda
 
@@ -145,3 +150,122 @@ def test_small_aldpfl_run_on_the_card_matches_the_cpu(cuda):
 def test_reference_backend_runs_the_kernels_on_the_card(cuda):
     """backend="reference" (σ=0) takes the same kernel path on the card."""
     _small_run_on_card_and_cpu(0.0, "reference")
+
+
+@pytest.mark.parametrize("k,n", [(5, 3000), (2, 300001), (1000, 20490)])
+def test_nnz_kernel_matches_plain(cuda, k, n):
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(k, n)).astype(np.float32)
+    x[rng.random((k, n)) < rng.random((k, 1))] = 0.0
+    x[0, :3] = -0.0
+    x[-1, 5] = np.nan
+    xt = torch.tensor(x, device=cuda)
+    before = wb.nnz_fleet.launches
+    got = wb.nnz_fleet(xt)
+    torch.cuda.synchronize()
+    assert wb.nnz_fleet.launches == before + 1
+    assert torch.equal(got, wb.nnz_plain(xt))
+
+
+@pytest.mark.parametrize("k,n", [(4, 3000), (1000, 4608)])
+def test_sparsify_kernel_matches_plain_bitwise(cuda, k, n):
+    rng = np.random.default_rng(k)
+    g = torch.tensor(rng.normal(size=(k, n)).astype(np.float32), device=cuda)
+    r = torch.tensor(rng.normal(size=(k, n)).astype(np.float32), device=cuda)
+    thr = (g + r)[:, 7].abs().contiguous()          # exact ties
+    g[0, :10] = -0.0
+    r[0, :10] = -0.0
+    thr[0] = 0.0                                    # c = -0.0 is kept
+    before = sp.sparsify_fleet.launches
+    uk, rk = sp.sparsify_fleet(g, r, thr)
+    up, rp = sp.sparsify_plain(g, r, thr)
+    u1, r1 = sp.sparsify_flat(g[1], r[1], thr[1])
+    torch.cuda.synchronize()
+    assert sp.sparsify_fleet.launches == before + 2
+    assert torch.equal(uk.view(torch.int32), up.view(torch.int32))
+    assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    assert torch.equal(u1.view(torch.int32), up[1].view(torch.int32))
+    assert torch.equal(r1.view(torch.int32), rp[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.05, 0.7])
+@pytest.mark.parametrize("k,n", [(3, 2000), (4, 300001)])
+def test_ldp_noise_kernel_matches_plain(cuda, k, n, sigma):
+    rng = np.random.default_rng(n)
+    x = torch.tensor(rng.normal(size=(k, n)).astype(np.float32), device=cuda)
+    seeds = torch.tensor(rng.integers(-2**31, 2**31, k).astype(np.int32),
+                         device=cuda)
+    scales = torch.tensor((rng.random(k) + 0.5).astype(np.float32),
+                          device=cuda)
+    before = ldp.ldp_perturb_fleet.launches
+    yk = ldp.ldp_perturb_fleet(x, seeds, scales, sigma, 1.3)
+    yp = ldp.ldp_perturb_plain(x, seeds, scales, sigma, 1.3)
+    y1 = ldp.ldp_perturb_flat(x[1], seeds[1], scales[1], sigma, 1.3)
+    torch.cuda.synchronize()
+    assert ldp.ldp_perturb_fleet.launches == before + 2
+    assert float((yk - yp).abs().max()) <= 2e-6 * max(1.0, sigma * 1.3)
+    assert torch.equal(y1, yk[1])
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.05])
+def test_fused_kernel_equals_the_kernel_chain_bitwise(cuda, sigma):
+    """One K1 launch against K4 per leaf -> K3 -> K5 on the card, with the
+    same per-leaf thresholds, seeds and clip scales."""
+    sizes = (16, 144, 32, 4608, 10, 15680)
+    k, n = 64, sum(sizes)
+    offs = tuple(int(b) for b in np.cumsum((0,) + sizes)[:-1])
+    rng = np.random.default_rng(1)
+    g = torch.tensor(rng.normal(size=(k, n)).astype(np.float32) * 1e-2,
+                     device=cuda)
+    r = torch.tensor(rng.normal(size=(k, n)).astype(np.float32) * 1e-2,
+                     device=cuda)
+    thr = torch.stack([(g + r)[:, o:o + s].abs().quantile(0.9, dim=1)
+                       for o, s in zip(offs, sizes)], dim=1).contiguous()
+    ups, news = zip(*(sp.sparsify_fleet(g[:, o:o + s].contiguous(),
+                                        r[:, o:o + s].contiguous(),
+                                        thr[:, i].contiguous())
+                      for i, (o, s) in enumerate(zip(offs, sizes))))
+    up4, r4 = torch.cat(ups, dim=1), torch.cat(news, dim=1)
+    nnz3 = wb.nnz_fleet(up4)
+    scales = 1.0 / torch.clamp(torch.sqrt((up4 * up4).sum(1)), min=1.0)
+    seeds = torch.tensor(rng.integers(-2**31, 2**31, k).astype(np.int32),
+                         device=cuda)
+    up5 = ldp.ldp_perturb_fleet(up4, seeds, scales, sigma, 1.0)
+    up1, r1, nnz1 = uf.upload_fused_fleet(g, r, thr, seeds, scales, sigma,
+                                          1.0, boundaries=offs,
+                                          need_nnz=True)
+    torch.cuda.synchronize()
+    assert torch.equal(up1.view(torch.int32), up5.view(torch.int32))
+    assert torch.equal(r1.view(torch.int32), r4.view(torch.int32))
+    assert torch.equal(nnz1, nnz3)
+
+
+def test_small_network_run_on_the_card_matches_the_cpu(cuda):
+    """The lossy async network run on the card and on the CPU: equal
+    records and `RunReport.net`, params within 1e-4."""
+    spec = api.ExperimentSpec(
+        fleet=api.FleetSpec(n_nodes=8, model="cnn", hw=(14, 14),
+                            samples_per_node=40, n_test=128, n_cloud_test=64,
+                            attack=api.AttackMix(malicious_frac=0.25)),
+        schedule=api.SchedulePolicy(kind="async"),
+        privacy=api.PrivacySpec(sigma=0.05),
+        compression=api.CompressionSpec(sparsify_ratio=0.1),
+        defense=api.DefenseSpec(detect=True),
+        network=api.NetworkSpec(codec="sparse_bitpack", bandwidth_sigma=1.0,
+                                latency_s=0.02, jitter_s=0.1,
+                                loss_prob=0.2),
+        topology=api.Topology(backend="pallas"), rounds=2)
+    plan = api.compile_plan(spec)
+    pop = api.materialize(spec, device="cpu")
+    r_gpu = api.run(plan, population=pop, device="cuda")
+    r_cpu = api.run(plan, population=pop, device="cpu")
+    assert r_gpu.net == r_cpu.net
+    for a, b in zip(r_cpu.records, r_gpu.records):
+        assert (a.t, a.version, a.comm_bytes, a.comm_time, a.n_rejected,
+                a.bytes_source) == (b.t, b.version, b.comm_bytes,
+                                    b.comm_time, b.n_rejected,
+                                    b.bytes_source)
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / 128
+    for x, y in zip(tree.leaves(r_cpu.final_params),
+                    tree.leaves(r_gpu.final_params)):
+        assert float((x - y.cpu()).abs().max()) <= 1e-4

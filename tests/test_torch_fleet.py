@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import fleet as jfleet
 from repro.data import make_federated_image_data
@@ -146,3 +147,72 @@ def test_async_windows_match_reference_engine(backend):
         _tree_close(js.residuals, ts.residuals)
         _tree_close(jeng.params, teng.params)
     assert jr.n_processed > 1       # the fold ran over several arrivals
+
+
+def _two_leaf_cohort(seed, c=5):
+    rng = np.random.default_rng(seed)
+    tree_ = {"w": rng.normal(size=(c, 37, 29)).astype(np.float32) * 0.1,
+             "b": rng.normal(size=(c, 53)).astype(np.float32) * 0.1}
+    res = {k: rng.normal(size=v.shape).astype(np.float32) * 0.05
+           for k, v in tree_.items()}
+    tree_["b"][c - 1, :4] = 0.0        # exact zeros before the split
+    return tree_, res
+
+
+def test_unfused_chain_stages_match_reference():
+    """`sparsify_pallas_cohort` (K4) -> `count_upload_nnz` (K3) ->
+    `aldp_pallas_cohort` (K5) on a two-leaf tree, against the reference's
+    stages: the split bitwise (int32 views), nnz equal on both backends,
+    the noised upload within K5's 2e-6 · max(1, σS)."""
+    deltas, res = _two_leaf_cohort(3)
+    _, _, k2s = jfleet.chain_node_keys(jax.random.PRNGKey(4), 5)
+    jd = jax.tree.map(jnp.asarray, deltas)
+    ju, jr = jax.jit(lambda d, r: jstages.sparsify_pallas_cohort(
+        d, r, 0.2))(jd, jax.tree.map(jnp.asarray, res))
+    tu, trs = tstages.sparsify_pallas_cohort(convert.to_torch(deltas),
+                                             convert.to_torch(res), 0.2)
+    for a, b in zip(jax.tree.leaves((ju, jr)), tree.leaves(tu)
+                    + tree.leaves(trs)):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                      b.numpy().view(np.int32))
+    for backend in ("reference", "pallas"):
+        np.testing.assert_array_equal(
+            np.asarray(jstages.count_upload_nnz(ju, backend)),
+            tstages.count_upload_nnz(tu, backend).numpy())
+    sigma, clip_s = 0.6, 1.0
+    jn = jax.jit(lambda d: jstages.aldp_pallas_cohort(d, k2s, sigma,
+                                                      clip_s))(ju)
+    tn = tstages.aldp_pallas_cohort(tu, np.asarray(k2s), sigma, clip_s)
+    _tree_close(jn, tn, atol=2e-6 * max(1.0, sigma * clip_s))
+    flat, unflatten = tstages.flatten_cohort(tu)
+    assert flat.shape == (5, 37 * 29 + 53)
+    for a, b in zip(tree.leaves(unflatten(flat)), tree.leaves(tu)):
+        assert torch.equal(a, b)
+
+
+def test_tree_wrappers_match_reference_ops():
+    """`kernels.ops`: the per-leaf flat K4/K5 wrappers over a parameter
+    tree (one threshold for the tree; leaf i seeded seed + i·7919)."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops as tops
+    deltas, res = _two_leaf_cohort(5, c=1)
+    g = {k: v[0] for k, v in deltas.items()}
+    r = {k: v[0] for k, v in res.items()}
+    ju, jr = jops.sparsify_pallas(jax.tree.map(jnp.asarray, g),
+                                  jax.tree.map(jnp.asarray, r), ratio=0.3)
+    tu, trs = tops.sparsify_pallas(convert.to_torch(g), convert.to_torch(r),
+                                   ratio=0.3)
+    for a, b in zip(jax.tree.leaves((ju, jr)), tree.leaves(tu)
+                    + tree.leaves(trs)):
+        np.testing.assert_array_equal(np.asarray(a).view(np.int32),
+                                      b.numpy().view(np.int32))
+    sigma, clip_s = 0.4, 0.5
+    seed = np.int32(2 ** 31 - 3000)     # leaf 1's seed wraps past 2^31
+    jp, jnrm = jops.aldp_perturb_pallas(jax.tree.map(jnp.asarray, g),
+                                        jnp.asarray(seed), sigma=sigma,
+                                        clip_s=clip_s)
+    tp, tnrm = tops.aldp_perturb_pallas(convert.to_torch(g),
+                                        torch.tensor(seed), sigma=sigma,
+                                        clip_s=clip_s)
+    np.testing.assert_allclose(float(tnrm), float(jnrm), rtol=1e-6)
+    _tree_close(jp, tp, atol=2e-6 * max(1.0, sigma * clip_s))
