@@ -2,10 +2,13 @@
 
 The JAX package `repro` is the reference; this package runs the same
 framework (ALDPFL and its synchronous sibling, through the same
-`api.run(api.compile_plan(spec))` entry point) on one NVIDIA GPU, with
-hand-written CUDA kernels in place of the Pallas kernels on that path
-(`kernels.upload_fused`, `kernels.window_fold`).  It imports torch, numpy
-and the standard library only — never `jax` and never `repro`.
+`api.run(api.compile_plan(spec))` entry point, with the network layer)
+and the model zoo's dense decoder family (`models`, `launch.serve`) on
+one NVIDIA GPU, with hand-written CUDA kernels (`kernels/`, sources in
+`csrc/`) in place of the Pallas kernels on those paths.  It imports
+torch, numpy and the standard library only (and `ml_dtypes` when
+`convert.to_numpy` hands bfloat16 to numpy) — never `jax` and never
+`repro`.
 
 Entry points run on ``device="cuda"`` by default and raise when no card
 is present unless the caller asks for ``device="cpu"``.

@@ -2,8 +2,10 @@
 
 `make_image_dataset` builds an MNIST/CIFAR-shaped classification problem:
 each class has a smooth random prototype image; samples are
-prototype + Gaussian noise.  Same generator calls in the same order as the
-reference, so the arrays are bit-identical for the same seed.
+prototype + Gaussian noise.  `make_token_dataset` builds an order-2 Markov
+language-modelling task for the model zoo.  Same generator calls in the
+same order as the reference, so the arrays are bit-identical for the same
+seed.
 """
 from __future__ import annotations
 
@@ -35,6 +37,23 @@ def make_image_dataset(seed: int, n: int, hw: Tuple[int, int] = (28, 28),
     x = protos[y] + rng.normal(0, noise, size=(n, hw[0], hw[1], ch))
     x = np.clip(x, 0.0, 1.0).astype(np.float32)
     return x, y
+
+
+def make_token_dataset(seed: int, n_seq: int, seq_len: int, vocab: int):
+    """Order-2 Markov chain over the vocab; returns tokens (n,S+1) int32."""
+    rng = np.random.default_rng(seed)
+    # sparse transition structure: each (a) maps to a few likely successors
+    n_succ = min(4, vocab)
+    succ = rng.integers(0, vocab, size=(vocab, n_succ))
+    seqs = np.zeros((n_seq, seq_len + 1), dtype=np.int32)
+    state = rng.integers(0, vocab, size=n_seq)
+    for t in range(seq_len + 1):
+        seqs[:, t] = state
+        choice = rng.integers(0, n_succ, size=n_seq)
+        jump = rng.random(n_seq) < 0.1
+        state = np.where(jump, rng.integers(0, vocab, size=n_seq),
+                         succ[state, choice])
+    return seqs
 
 
 def partition_iid(n: int, n_nodes: int, seed: int = 0):

@@ -1,15 +1,21 @@
-"""Device resolution and float32 precision policy for the port."""
+"""Device resolution and the port's numerics policy on the card."""
 from __future__ import annotations
 
 import torch
 
 
 def set_precision() -> None:
-    """Full float32 everywhere: cuDNN convolutions default to TF32, which
-    keeps about three decimal digits and would break parity with the
-    reference."""
+    """Full float32 everywhere, and runs that repeat bit for bit.
+
+    cuDNN convolutions default to TF32, which keeps about three decimal
+    digits and would break parity with the reference.  cuDNN is held to
+    its deterministic algorithms, and to a fixed choice among them (no
+    benchmarking), because one delta moved by its last bit can carry an
+    element across the DGC threshold and change a run's records."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
 
 
 def resolve(device=None) -> torch.device:

@@ -1,7 +1,7 @@
-"""Parameter-tree wrappers over the flat kernels K4 and K5.
+"""Model-layout and parameter-tree wrappers over the kernels K4, K5, K6.
 
-Port of `repro.kernels.ops` (`attention_pallas` comes with kernel K6,
-ROADMAP.md item 16): `sparsify_pallas` runs the DGC container update on a
+Port of `repro.kernels.ops`: `attention_pallas` runs K6 on the model
+layout (B, S, H, D); `sparsify_pallas` runs the DGC container update on a
 tree at a keep ratio, `aldp_perturb_pallas` the clip-at-S + noise of
 Eq. (8), one flat kernel launch per leaf with leaf i seeded
 ``seed + i·7919``.
@@ -15,8 +15,21 @@ import torch
 from .. import tree as tree_util
 from ..core.accumulator import leaf_threshold
 from ..core.aldp import global_norm
+from .flash_attention import flash_attention
 from .ldp_noise import ldp_perturb_flat
 from .sparsify import sparsify_flat
+
+
+def attention_pallas(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Model layout: q (B, S, H, D); k, v (B, S, KV, D) -> (B, S, H, D).
+    The kernel reads the transposed views through their strides and
+    writes a (B, S, H, D) tensor, so no copy is made on the card."""
+    B, S, H, D = q.shape
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal, window=window, out=out.transpose(1, 2))
+    return out
 
 
 def aldp_perturb_pallas(tree, seed: torch.Tensor, *, sigma: float,

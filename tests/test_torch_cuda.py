@@ -11,14 +11,24 @@ within 2e-6 · max(1, σS) (the noise's log/cos are libm's in the kernel and
 PyTorch's CUDA math in the plain version); K2 bitwise (both compute each
 gated step as one fma(a, cur, b·ω)); K3 equal; K4 bitwise as int32 views;
 K5 within 2e-6 · max(1, σS), as K1; K1 against the K4 -> K3 -> K5 kernel
-chain bitwise (one noise header, the same rounded operations).
+chain bitwise (one noise header, the same rounded operations); K6 within
+1e-5 at unit-scale inputs in float32 (the kernel and the plain version sum
+over up to 2,048 keys in other orders), plus one bf16 ulp of the larger
+value in bfloat16 (each rounds one float32 result once); a small model
+forward with K6 on the card within 1e-4 of the CPU, as the CPU parity
+tests hold the port to the reference.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import api, tree
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ldp_noise as ldp
+from repro_torch.kernels.ops import attention_pallas
+from repro_torch.launch.serve import prompts, serve
+from repro_torch.models import forward, init_params
 from repro_torch.kernels import sparsify as sp
 from repro_torch.kernels import upload_fused as uf
 from repro_torch.kernels import window_fold as wf
@@ -269,3 +279,75 @@ def test_small_network_run_on_the_card_matches_the_cpu(cuda):
     for x, y in zip(tree.leaves(r_cpu.final_params),
                     tree.leaves(r_gpu.final_params)):
         assert float((x - y.cpu()).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dtype,window", [
+    (8, 15, 5, 2048, 64, torch.bfloat16, 0),     # smollm-360m, causal
+    (8, 15, 5, 2048, 64, torch.bfloat16, 256),   # the same, window 256
+    (2, 4, 2, 1000, 64, torch.float32, 0),       # unaligned: padding
+    (1, 3, 1, 77, 80, torch.float32, 20),        # head_dim 80, tiny window
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype,
+                                              window):
+    rng = np.random.default_rng(s + window)
+    q, k, v = (torch.tensor(rng.normal(size=(b, n, s, d)).astype(np.float32),
+                            device=cuda).to(dtype) for n in (h, kv, kv))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    tol = torch.full_like(got, 1e-5)
+    if dtype == torch.bfloat16:
+        big = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+        tol += torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
+def test_attention_pallas_reads_model_layout_views(cuda):
+    """Strided (B, S, H, D) views in, a (B, S, H, D) tensor out, equal to
+    the kernel on contiguous copies (non-causal: all keys)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.tensor(rng.normal(size=(2, 300, n, 64))
+                            .astype(np.float32), device=cuda)
+               for n in (6, 2, 2))
+    got = attention_pallas(q, k, v, causal=False)
+    want = fa.flash_attention(*(t.transpose(1, 2).contiguous()
+                                for t in (q, k, v)), causal=False)
+    torch.cuda.synchronize()
+    assert got.is_contiguous()
+    assert torch.equal(got, want.transpose(1, 2))
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 2, 8, 160, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        fa.flash_attention(x, x, x)
+    y = torch.zeros(1, 2, 8, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(y, y, y)
+    z = torch.zeros(1, 2, 16, 8, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(z, z, z)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen1.5-0.5b"])
+def test_two_layer_model_with_flash_on_the_card_matches_the_cpu(cuda, arch):
+    cfg = get_smoke_config(arch).replace(use_flash=True, attn_chunk=16)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    p_gpu = tree.map(lambda t: t.to(cuda), p_cpu)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 100)).astype(np.int32))
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        l_cpu, _ = forward(p_cpu, cfg, {"tokens": toks})
+        l_gpu, _ = forward(p_gpu, cfg, {"tokens": toks.to(cuda)})
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 1e-4
+    g_cpu = serve(p_cpu, cfg, prompts(cfg.vocab, 2, 20), 9)["tokens"]
+    g_gpu = serve(p_gpu, cfg, prompts(cfg.vocab, 2, 20, device=cuda),
+                  9)["tokens"]
+    assert torch.equal(g_cpu, g_gpu.cpu())
