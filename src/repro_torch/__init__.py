@@ -3,9 +3,10 @@
 The JAX package `repro` is the reference; this package runs the same
 framework (ALDPFL and its synchronous sibling, through the same
 `api.run(api.compile_plan(spec))` entry point, with the network layer)
-and the model zoo's dense decoder family (`models`, `launch.serve`) on
-one NVIDIA GPU, with hand-written CUDA kernels (`kernels/`, sources in
-`csrc/`) in place of the Pallas kernels on those paths.  It imports
+and the model zoo's dense, ssm and hybrid families (`models`,
+`launch.serve`) on one NVIDIA GPU, with hand-written CUDA kernels
+(`kernels/`, sources in `csrc/`) in place of every Pallas kernel of the
+reference.  It imports
 torch, numpy and the standard library only (and `ml_dtypes` when
 `convert.to_numpy` hands bfloat16 to numpy) — never `jax` and never
 `repro`.

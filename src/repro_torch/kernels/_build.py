@@ -20,7 +20,7 @@ from typing import Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("upload_fused", "window_fold", "wire_bytes", "sparsify",
-           "ldp_noise", "flash_attention")
+           "ldp_noise", "flash_attention", "selective_scan", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

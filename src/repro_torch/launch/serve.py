@@ -5,10 +5,13 @@ Port of `repro.launch.serve`, with the same flags plus ``--device``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --full --batch 8 --prompt-len 512 --gen 33
 
-It runs on the card unless ``--device cpu`` is given.  Params are drawn
-from a `torch.Generator` seeded 0, the prompts from
-``np.random.default_rng(0)`` as the reference draws them, and the KV
-cache is float32, as the reference's driver makes it.  Prefill and decode
+``--arch`` takes the dense family (smollm-360m, qwen1.5-0.5b, olmo-1b,
+codeqwen1.5-7b), the ssm family (falcon-mamba-7b) and the hybrid family
+(zamba2-1.2b); the others raise `NotImplementedError`.  It runs on the
+card unless ``--device cpu`` is given.  Params are drawn from a
+`torch.Generator` seeded 0, the prompts from ``np.random.default_rng(0)``
+as the reference draws them, and the cache (KV and SSM states) is
+float32, as the reference's driver makes it.  Prefill and decode
 are timed on the host clock, each ended by a device synchronise.
 """
 from __future__ import annotations
@@ -56,7 +59,8 @@ def _sync(device: torch.device) -> None:
 @torch.no_grad()
 def serve(params: dict, cfg, tokens: torch.Tensor, gen: int) -> dict:
     """Prefill ``tokens`` (B, S), then ``gen - 1`` greedy decode steps over
-    a float32 cache, as the reference driver makes it.
+    a float32 cache (KV slots and SSM states), as the reference driver
+    makes it.
     Returns the generated ids (B, gen) and the prefill and decode wall
     seconds (host clock, each ended by a synchronise)."""
     dev = tokens.device

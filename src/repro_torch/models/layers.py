@@ -164,11 +164,18 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, kind: str = "swiglu",
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu` as XLA computes it: x · (1 / (1 + exp(−x))), each
+    step rounded to x's dtype (XLA expands the logistic so; `F.silu`
+    rounds once and is a bfloat16 ulp away for a third of the inputs)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_fwd(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     if kind == "swiglu":
         g = linear_fwd(p["w_gate"], x)
         u = linear_fwd(p["w_up"], x)
-        return linear_fwd(p["w_down"], F.silu(g) * u)
+        return linear_fwd(p["w_down"], silu(g) * u)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(linear_fwd(p["w_up"], x), approximate="tanh")
     return linear_fwd(p["w_down"], h)

@@ -1,7 +1,10 @@
-"""The model zoo's decoder, dense family: init, scoring forward, serving.
+"""The model zoo's decoder: dense, ssm and hybrid families.
 
-Port of `repro.models.model` for ``cfg.family == "dense"`` (smollm-360m,
-qwen1.5-0.5b, olmo-1b, codeqwen1.5-7b).  Public API, as the reference's:
+Port of `repro.models.model` for ``cfg.family`` "dense" (smollm-360m,
+qwen1.5-0.5b, olmo-1b, codeqwen1.5-7b), "ssm" (falcon-mamba-7b: a stack
+of Mamba1 blocks) and "hybrid" (zamba2-1.2b: Mamba2 blocks with one
+shared attention block after every ``cfg.attn_every`` of them).  Public
+API, as the reference's:
 
   init_params(cfg, generator, device)              -> params
   forward(params, cfg, batch)                      -> (logits, aux_loss)
@@ -14,20 +17,28 @@ Params keep the reference's stacked layout: every leaf of
 ``params["blocks"]`` has a leading n_layers axis, so `convert.to_torch`
 carries a JAX param tree across as it is.  The reference scans the layer
 stack; here a Python loop walks it.  With ``cfg.use_flash`` every causal
-self-attention of `forward` runs kernel K6 (`kernels.ops.attention_pallas`);
-`prefill` and `decode_step` use `models.attention`, as the reference does.
-``remat`` and ``seq_parallel`` change no forward value and are ignored.
+self-attention of `forward` (the dense blocks, zamba2's shared block)
+runs kernel K6 (`kernels.ops.attention_pallas`); `prefill` and
+`decode_step` use `models.attention`, as the reference does.  The Mamba
+blocks run the reference's chunked scans (`models.ssm`), which call
+neither K7 nor K8, as in the reference.  ``remat`` and ``seq_parallel``
+change no forward value and are ignored.
 
 Serving with a float32 cache under a bfloat16 model (what
-`launch.serve` does) promotes as jnp does: the first layer's decode
-attention reads float32 keys, so its output and from there the residual
-stream are float32.  The reference's scanned `decode_step` refuses that
-change of carry dtype; its blocks, called one by one, compute what the
-loop here computes.
+`launch.serve` does) promotes as jnp does: a decode attention reads
+float32 keys, so its output and from there the residual stream are
+float32 (every dense layer; zamba2 after its first shared block; never
+falcon-mamba, whose float32 SSM state is cast back to the stream's
+dtype).  The reference's scanned dense `decode_step` refuses that change
+of carry dtype; its blocks, called one by one, compute what the loop
+here computes.  The SSM states are replaced by each prefill and decode
+step (stacked per layer, promoted as jnp's concatenate does), so the
+conv state takes the stream's dtype as in the reference; the KV caches
+are written in place.
 
-Families this slice does not run (moe, ssm, hybrid, vlm, audio) load
-their configs, and every function here raises `NotImplementedError` on
-them naming the ROADMAP.md item that ports them.
+The moe, vlm and audio families load their configs, and every function
+here raises `NotImplementedError` on them naming the ROADMAP.md item
+that ports them.
 """
 from __future__ import annotations
 
@@ -38,17 +49,18 @@ import torch
 from .. import tree as tree_util
 from ..kernels.ops import attention_pallas
 from . import attention as attn
+from . import ssm
 from .config import ModelConfig
 from .layers import (apply_rope, dtype_of, embed_fwd, init_embedding,
                      init_mlp, init_norm, linear_fwd, mlp_fwd, norm_fwd,
                      rope_angles, unembed_fwd)
 
-_LATER = {"ssm": "16b", "hybrid": "16b", "moe": "16c", "vlm": "16c",
-          "audio": "16c"}
+_PORTED = ("dense", "ssm", "hybrid")
+_LATER = {"moe": "16c", "vlm": "16c", "audio": "16c"}
 
 
-def _require_dense(cfg: ModelConfig, what: str) -> None:
-    if cfg.family == "dense":
+def _require_ported(cfg: ModelConfig, what: str) -> None:
+    if cfg.family in _PORTED:
         return
     if cfg.family in _LATER:
         raise NotImplementedError(
@@ -101,6 +113,32 @@ def _transformer_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return x + mlp_fwd(cfg.mlp, p["mlp"], h)
 
 
+def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig,
+                      device) -> dict:
+    init = ssm.init_mamba1 if cfg.ssm.kind == "mamba1" else ssm.init_mamba2
+    return {"norm": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                              device),
+            "mixer": init(gen, cfg, cfg.param_dtype, device)}
+
+
+def _mamba_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     state: Optional[dict] = None
+                     ) -> Tuple[torch.Tensor, dict]:
+    h = norm_fwd(cfg.norm, p["norm"], x, cfg.norm_eps)
+    fwd = ssm.mamba1_fwd if cfg.ssm.kind == "mamba1" else ssm.mamba2_fwd
+    y, new_state = fwd(p["mixer"], cfg, h, state)
+    return x + y, new_state
+
+
+def _mamba_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                        state: dict) -> Tuple[torch.Tensor, dict]:
+    h = norm_fwd(cfg.norm, p["norm"], x, cfg.norm_eps)
+    dec = ssm.mamba1_decode if cfg.ssm.kind == "mamba1" \
+        else ssm.mamba2_decode
+    y, new_state = dec(p["mixer"], cfg, h, state)
+    return x + y, new_state
+
+
 # ---------------------------------------------------------------------------
 # Param init
 # ---------------------------------------------------------------------------
@@ -111,7 +149,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     scales and dtypes (the draws differ from `jax.random`'s; tests carry
     the reference's params across with `convert.to_torch`).  A generator
     on the card draws there, which is what a full-size init wants."""
-    _require_dense(cfg, "init_params")
+    _require_ported(cfg, "init_params")
     params: Dict[str, Any] = {
         "embed": init_embedding(generator, cfg.vocab, cfg.d_model,
                                 cfg.param_dtype, device),
@@ -121,9 +159,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(generator, cfg.vocab, cfg.d_model,
                                            cfg.param_dtype, device)
-    layers = [_init_transformer_block(generator, cfg, device)
-              for _ in range(cfg.n_layers)]
+    block = _init_transformer_block if cfg.family == "dense" \
+        else _init_mamba_block
+    layers = [block(generator, cfg, device) for _ in range(cfg.n_layers)]
     params["blocks"] = tree_util.map(lambda *xs: torch.stack(xs), *layers)
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _init_transformer_block(generator, cfg,
+                                                        device)
     return params
 
 
@@ -151,19 +193,57 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def forward(params: dict, cfg: ModelConfig, batch: dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _require_dense(cfg, "forward")
+    _require_ported(cfg, "forward")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_fwd(params["embed"], tokens, dtype_of(cfg.compute_dtype))
-    angles = _angles_for(cfg, _positions(B, S, x.device))
-    for i in range(cfg.n_layers):
-        x = _transformer_block_fwd(_layer(params["blocks"], i), cfg, x,
-                                   angles, causal=True,
-                                   window=cfg.sliding_window)
+    if cfg.family == "dense":
+        angles = _angles_for(cfg, _positions(B, S, x.device))
+        for i in range(cfg.n_layers):
+            x = _transformer_block_fwd(_layer(params["blocks"], i), cfg, x,
+                                       angles, causal=True,
+                                       window=cfg.sliding_window)
+    else:
+        x = _mamba_forward(params, cfg, x)
     x = norm_fwd(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["unembed"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed_fwd(head, x), aux
+
+
+def _hybrid_groups(cfg: ModelConfig):
+    """[(start, size), ...] with shared attention after every full group
+    (one group of every layer when ``cfg.attn_every`` is 0: the ssm
+    family)."""
+    per = cfg.attn_every if cfg.attn_every else cfg.n_layers
+    groups = []
+    i = 0
+    while i < cfg.n_layers:
+        size = min(per, cfg.n_layers - i)
+        groups.append((i, size))
+        i += size
+    return groups
+
+
+def _attn_after(cfg: ModelConfig, start: int, size: int) -> bool:
+    """Whether the shared attention block runs after a group."""
+    return bool(cfg.attn_every) and (start + size) % cfg.attn_every == 0
+
+
+def _mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor
+                   ) -> torch.Tensor:
+    """The ssm and hybrid stacks: the Mamba blocks group by group, the
+    hybrid family's shared attention block after each full group."""
+    B, S = x.shape[:2]
+    angles = _angles_for(cfg, _positions(B, S, x.device))
+    for start, size in _hybrid_groups(cfg):
+        for i in range(start, start + size):
+            x = _mamba_block_fwd(_layer(params["blocks"], i), cfg, x)[0]
+        if _attn_after(cfg, start, size):
+            x = _transformer_block_fwd(params["shared_attn"], cfg, x,
+                                       angles, causal=True,
+                                       window=cfg.sliding_window)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -199,18 +279,36 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device="cpu") -> dict:
-    _require_dense(cfg, "init_cache")
+    """The KV cache of every dense layer ("kv"); for the ssm and hybrid
+    families the float32 SSM state of every layer ("ssm") and, for the
+    hybrid family, one KV slot per shared-attention call ("attn")."""
+    _require_ported(cfg, "init_cache")
     hd = cfg.derived_head_dim()
     C = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
-    shape = (cfg.n_layers, batch, C, cfg.n_kv_heads, hd)
-    return {
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-        "kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
-               "v": torch.zeros(shape, dtype=dtype, device=device),
-               "idx": torch.zeros(cfg.n_layers, dtype=torch.int32,
-                                  device=device)},
-    }
+    cache: Dict[str, Any] = {
+        "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+    def kv_stack(n: int) -> dict:
+        shape = (n, batch, C, cfg.n_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "idx": torch.zeros(n, dtype=torch.int32, device=device)}
+
+    if cfg.family == "dense":
+        cache["kv"] = kv_stack(cfg.n_layers)
+        return cache
+    init = ssm.init_mamba1_state if cfg.family == "ssm" \
+        else ssm.init_mamba2_state
+    cache["ssm"] = tree_util.map(
+        lambda a: torch.zeros((cfg.n_layers,) + tuple(a.shape),
+                              dtype=a.dtype, device=device),
+        init(cfg, batch, device))
+    if cfg.family == "hybrid":
+        n_attn = sum(1 for s, z in _hybrid_groups(cfg)
+                     if _attn_after(cfg, s, z))
+        cache["attn"] = kv_stack(max(n_attn, 1))
+    return cache
 
 
 def _attn_block_with_cache(p, cfg: ModelConfig, x, angles, cache_layer,
@@ -233,22 +331,49 @@ def _attn_block_with_cache(p, cfg: ModelConfig, x, angles, cache_layer,
     return x + mlp_fwd(cfg.mlp, p["mlp"], h), cache_layer
 
 
+def _attn_slot(p: dict, cfg: ModelConfig, x: torch.Tensor, angles,
+               kv: dict, i: int, decode: bool) -> torch.Tensor:
+    """One attention block over slot ``i`` of a stacked KV cache (k and v
+    written in place, the slot's token count updated)."""
+    layer = {"k": kv["k"][i], "v": kv["v"][i], "idx": kv["idx"][i]}
+    x, layer = _attn_block_with_cache(p, cfg, x, angles, layer,
+                                      decode=decode)
+    kv["idx"][i] = layer["idx"]
+    return x
+
+
 def _run_cached(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 angles, cache: dict, decode: bool) -> torch.Tensor:
-    kv = cache["kv"]
-    for i in range(cfg.n_layers):
-        layer = {"k": kv["k"][i], "v": kv["v"][i], "idx": kv["idx"][i]}
-        x, layer = _attn_block_with_cache(_layer(params["blocks"], i), cfg,
-                                          x, angles, layer, decode=decode)
-        kv["idx"][i] = layer["idx"]
+    """Every layer over its cache: the dense layers' KV slots, or the
+    Mamba layers' states (replaced) and the hybrid family's shared
+    attention slots."""
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            x = _attn_slot(_layer(params["blocks"], i), cfg, x, angles,
+                           cache["kv"], i, decode)
+        return x
+    block = _mamba_decode_block if decode else _mamba_block_fwd
+    states = []
+    ai = 0
+    for start, size in _hybrid_groups(cfg):
+        for i in range(start, start + size):
+            x, st = block(_layer(params["blocks"], i), cfg, x,
+                          _layer(cache["ssm"], i))
+            states.append(st)
+        if _attn_after(cfg, start, size):
+            x = _attn_slot(params["shared_attn"], cfg, x, angles,
+                           cache["attn"], ai, decode)
+            ai += 1
+    # torch.stack promotes mixed layer dtypes as jnp's concatenate does
+    cache["ssm"] = tree_util.map(lambda *xs: torch.stack(xs), *states)
     return x
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict
             ) -> Tuple[torch.Tensor, dict]:
-    """Consume the prompt, fill the cache (in place), return the
-    last-position logits (B, 1, V)."""
-    _require_dense(cfg, "prefill")
+    """Consume the prompt, fill the cache, return the last-position
+    logits (B, 1, V)."""
+    _require_ported(cfg, "prefill")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_fwd(params["embed"], tokens, dtype_of(cfg.compute_dtype))
@@ -262,8 +387,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
-    """tokens (B, 1) -> (logits (B, 1, V), cache updated in place)."""
-    _require_dense(cfg, "decode_step")
+    """tokens (B, 1) -> (logits (B, 1, V), cache updated)."""
+    _require_ported(cfg, "decode_step")
     x = embed_fwd(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     B = x.shape[0]
     pos = cache["pos"][None].repeat(B)[:, None]                   # (B, 1)

@@ -14,9 +14,13 @@ K5 within 2e-6 · max(1, σS), as K1; K1 against the K4 -> K3 -> K5 kernel
 chain bitwise (one noise header, the same rounded operations); K6 within
 1e-5 at unit-scale inputs in float32 (the kernel and the plain version sum
 over up to 2,048 keys in other orders), plus one bf16 ulp of the larger
-value in bfloat16 (each rounds one float32 result once); a small model
-forward with K6 on the card within 1e-4 of the CPU, as the CPU parity
-tests hold the port to the reference.
+value in bfloat16 (each rounds one float32 result once); K8 and K7 within
+5e-6 of the output's largest magnitude (y reaches 10-35; the kernels sum
+in other orders than the plain versions and use CUDA's expf; readings
+under 1e-6 of it), plus one bf16 ulp of the larger value for a bfloat16
+y; a small model forward with K6 on the card within 1e-4 of the CPU, as
+the CPU parity tests hold the port to the reference, and the two-layer
+falcon-mamba and zamba2 likewise.
 """
 import numpy as np
 import pytest
@@ -29,7 +33,10 @@ from repro_torch.kernels import ldp_noise as ldp
 from repro_torch.kernels.ops import attention_pallas
 from repro_torch.launch.serve import prompts, serve
 from repro_torch.models import forward, init_params
+from repro_torch.models.ssm import softplus
+from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels import sparsify as sp
+from repro_torch.kernels import ssd_scan as sd
 from repro_torch.kernels import upload_fused as uf
 from repro_torch.kernels import window_fold as wf
 from repro_torch.kernels import wire_bytes as wb
@@ -283,6 +290,7 @@ def test_small_network_run_on_the_card_matches_the_cpu(cuda):
 
 @pytest.mark.parametrize("b,h,kv,s,d,dtype,window", [
     (8, 15, 5, 2048, 64, torch.bfloat16, 0),     # smollm-360m, causal
+    (8, 32, 32, 2048, 64, torch.bfloat16, 0),    # zamba2-1.2b's shared block
     (8, 15, 5, 2048, 64, torch.bfloat16, 256),   # the same, window 256
     (2, 4, 2, 1000, 64, torch.float32, 0),       # unaligned: padding
     (1, 3, 1, 77, 80, torch.float32, 20),        # head_dim 80, tiny window
@@ -346,6 +354,137 @@ def test_two_layer_model_with_flash_on_the_card_matches_the_cpu(cuda, arch):
         l_cpu, _ = forward(p_cpu, cfg, {"tokens": toks})
         l_gpu, _ = forward(p_gpu, cfg, {"tokens": toks.to(cuda)})
     assert fa.flash_attention.launches == before + cfg.n_layers
+    assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 1e-4
+    g_cpu = serve(p_cpu, cfg, prompts(cfg.vocab, 2, 20), 9)["tokens"]
+    g_gpu = serve(p_gpu, cfg, prompts(cfg.vocab, 2, 20, device=cuda),
+                  9)["tokens"]
+    assert torch.equal(g_cpu, g_gpu.cpu())
+
+
+def _scan_held(got, want):
+    """Within 5e-6 of ``want``'s largest magnitude, plus one bf16 ulp of
+    the larger value for bfloat16."""
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    tol = torch.full_like(got, 5e-6 * max(1.0, float(want.abs().max())))
+    if bf16:
+        big = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
+        tol += torch.exp2(torch.floor(torch.log2(big)) - 7)
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.parametrize("b,l,d,n,dtype", [
+    (4, 2048, 8192, 16, torch.bfloat16),   # falcon-mamba-7b
+    (3, 1000, 1000, 16, torch.float32),    # L and D not multiples of 32
+    (2, 77, 45, 8, torch.bfloat16),
+    (1, 33, 8, 4, torch.float32),          # N below 8 states a lane
+])
+def test_selective_scan_kernel_matches_plain(cuda, b, l, d, n, dtype):
+    g = torch.Generator(cuda).manual_seed(l)
+    x = torch.randn(b, l, d, generator=g, device=cuda).to(dtype)
+    dt = (softplus(torch.randn(b, l, d, generator=g, device=cuda))
+          * 0.1).to(dtype)
+    Bm, Cm = (torch.randn(b, l, n, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    A = -torch.exp(torch.randn(d, n, generator=g, device=cuda) * 0.2)
+    before = ss.selective_scan.launches
+    y, h = ss.selective_scan(x, dt, Bm, Cm, A)
+    yp, hp = ss.selective_scan_plain(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    _scan_held(y, yp)
+    _scan_held(h, hp)
+
+
+@pytest.mark.parametrize("b,l,h,p,n,c,dtype", [
+    (8, 2048, 64, 64, 64, 128, torch.bfloat16),  # zamba2-1.2b
+    (2, 1000, 7, 64, 64, 128, torch.float32),    # ragged L, odd heads
+    (1, 50, 6, 8, 32, 64, torch.bfloat16),       # chunk > L
+    (1, 37, 3, 5, 7, 6, torch.float32),          # sizes not multiples of 4
+])
+def test_ssd_scan_kernel_matches_plain(cuda, b, l, h, p, n, c, dtype):
+    g = torch.Generator(cuda).manual_seed(l)
+    x = torch.randn(b, l, h, p, generator=g, device=cuda).to(dtype)
+    dt = (softplus(torch.randn(b, l, h, generator=g, device=cuda))
+          * 0.1).to(dtype)
+    Bm, Cm = (torch.randn(b, l, n, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    A = -torch.exp(torch.randn(h, generator=g, device=cuda) * 0.3)
+    before = sd.ssd_scan.launches
+    y, hf = sd.ssd_scan(x, dt, Bm, Cm, A, chunk=c)
+    yp, hp = sd.ssd_scan_plain(x, dt, Bm, Cm, A, chunk=c)
+    torch.cuda.synchronize()
+    assert sd.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and hf.dtype == torch.float32
+    _scan_held(y, yp)
+    _scan_held(hf, hp)
+
+
+def test_ssd_scan_reads_the_models_strided_views(cuda):
+    """x, B and C as views of one (B, L, conv_dim) tensor and dt as a
+    column block of another, as `models.ssm` hands them over: equal to the
+    kernel on contiguous copies."""
+    g = torch.Generator(cuda).manual_seed(0)
+    H, P, N, L = 4, 16, 8, 40
+    xbc = torch.randn(2, L, H * P + 2 * N, generator=g, device=cuda)
+    zdt = softplus(torch.randn(2, L, 3 * H, generator=g, device=cuda))
+    x = xbc[..., :H * P].reshape(2, L, H, P)
+    Bm = xbc[..., H * P:H * P + N].reshape(2, L, 1, N)
+    Cm = xbc[..., H * P + N:].reshape(2, L, 1, N)
+    dt = zdt[..., H:2 * H] * 0.1
+    A = -torch.exp(torch.randn(H, generator=g, device=cuda))
+    got = sd.ssd_scan(x, dt, Bm, Cm, A, chunk=16)
+    want = sd.ssd_scan(x.contiguous(), dt.contiguous(),
+                       Bm[:, :, 0].contiguous(), Cm[:, :, 0].contiguous(),
+                       A, chunk=16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 8, 4, device=cuda)
+    bc = torch.zeros(1, 8, 16, device=cuda)
+    A = torch.zeros(4, 16, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        ss.selective_scan(x.half(), x.half(), bc.half(), bc.half(), A)
+    with pytest.raises(ValueError, match="power of two"):
+        ss.selective_scan(x, x, bc[..., :12], bc[..., :12], A[:, :12])
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.selective_scan(x, torch.zeros(1, 4, 8, device=cuda).transpose(1, 2),
+                          bc, bc, A)
+    with pytest.raises(ValueError, match="float32"):
+        ss.selective_scan(x, x, bc, bc, A.double())
+    x4 = torch.zeros(1, 8, 2, 64, device=cuda)
+    dt = torch.zeros(1, 8, 2, device=cuda)
+    big = torch.zeros(1, 8, 256, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sd.ssd_scan(torch.zeros(1, 512, 2, 64, device=cuda),
+                    torch.zeros(1, 512, 2, device=cuda),
+                    torch.zeros(1, 512, 256, device=cuda),
+                    torch.zeros(1, 512, 256, device=cuda),
+                    torch.zeros(2, device=cuda), chunk=512)
+    with pytest.raises(ValueError, match="bfloat16"):
+        sd.ssd_scan(x4.half(), dt.half(), big[..., :8].half(),
+                    big[..., :8].half(), torch.zeros(2, device=cuda), chunk=4)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_two_layer_ssm_models_on_the_card_match_the_cpu(cuda, arch):
+    """The smoke configs (float32; zamba2 with use_flash, so its shared
+    block runs K6): logits within 1e-4, greedy tokens equal."""
+    cfg = get_smoke_config(arch).replace(use_flash=True, attn_chunk=16)
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    p_gpu = tree.map(lambda t: t.to(cuda), p_cpu)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 100)).astype(np.int32))
+    before = fa.flash_attention.launches
+    with torch.no_grad():
+        l_cpu, _ = forward(p_cpu, cfg, {"tokens": toks})
+        l_gpu, _ = forward(p_gpu, cfg, {"tokens": toks.to(cuda)})
+    calls = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    assert fa.flash_attention.launches == before + calls
     assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 1e-4
     g_cpu = serve(p_cpu, cfg, prompts(cfg.vocab, 2, 20), 9)["tokens"]
     g_gpu = serve(p_gpu, cfg, prompts(cfg.vocab, 2, 20, device=cuda),

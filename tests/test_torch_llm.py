@@ -80,8 +80,7 @@ def test_configs_are_the_reference_configs(arch):
     assert dataclasses.asdict(lc_t) == dataclasses.asdict(lc_j)
 
 
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "falcon-mamba-7b",
-                                  "zamba2-1.2b", "qwen2-vl-72b",
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "qwen2-vl-72b",
                                   "whisper-large-v3"])
 def test_unported_families_load_and_raise(arch):
     cfg = tconfigs.get_smoke_config(arch)
@@ -90,7 +89,7 @@ def test_unported_families_load_and_raise(arch):
                  lambda: tm.forward({}, cfg, {"tokens": toks}),
                  lambda: tm.prefill({}, cfg, {"tokens": toks}, {}),
                  lambda: tm.init_cache(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 16"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 16c"):
             call()
 
 
