@@ -15,7 +15,13 @@ the whole q block skipped, and the output acc / max(l, 1e-30) cast to q's
 dtype.  The plain version walks the reference's (128, 128) blocks; the
 CUDA kernel uses (64, 64) tiles.  Skipping or computing a block that is
 masked for a row changes nothing once that row has a real key, so the two
-differ only in the order of float32 sums.
+differ only in the order of float32 sums.  The kernel runs bf16 inputs on
+the tensor cores, with q·scale split into bf16 terms that sum to it
+exactly (QKᵀ keeps the float32 computation's products) and p into two
+terms that miss it by at most 2⁻¹⁶·p, and float32 inputs on the CUDA
+cores.  The tensor cores add those products with their own alignment and
+truncation, not in IEEE float32, so on that route the sums also round
+differently; the checks on the card bound the difference.
 """
 from __future__ import annotations
 

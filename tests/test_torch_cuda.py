@@ -294,6 +294,9 @@ def test_small_network_run_on_the_card_matches_the_cpu(cuda):
     (8, 15, 5, 2048, 64, torch.bfloat16, 256),   # the same, window 256
     (2, 4, 2, 1000, 64, torch.float32, 0),       # unaligned: padding
     (1, 3, 1, 77, 80, torch.float32, 20),        # head_dim 80, tiny window
+    (2, 4, 2, 200, 128, torch.bfloat16, 0),      # tensor cores: 3 q terms
+    (1, 3, 1, 77, 80, torch.bfloat16, 20),       # D padded to 96, 3 q terms
+    (2, 4, 2, 1000, 64, torch.bfloat16, 0),      # unaligned tail of keys
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype,
                                               window):
@@ -306,13 +309,54 @@ def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype,
     torch.cuda.synchronize()
     assert fa.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == want.shape
+    _assert_flash_held(got, want)
+
+
+def _assert_flash_held(got, want):
+    """1e-5, plus one bf16 ulp of the larger value for bfloat16."""
+    bf16 = got.dtype == torch.bfloat16
     got, want = got.float(), want.float()
     tol = torch.full_like(got, 1e-5)
-    if dtype == torch.bfloat16:
+    if bf16:
         big = torch.maximum(got.abs(), want.abs()).clamp(min=1e-30)
         tol += torch.exp2(torch.floor(torch.log2(big)) - 7)
     assert bool(((got - want).abs() <= tol).all()), \
         float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("window", [0, 50])
+def test_flash_attention_bf16_with_more_keys_than_queries(cuda, window):
+    """Sk > Sq (causal positions from 0 on both axes, as the reference)."""
+    rng = np.random.default_rng(7 + window)
+    q, k, v = (torch.tensor(rng.normal(size=(2, n, s, 64)).astype(np.float32),
+                            device=cuda).to(torch.bfloat16)
+               for n, s in ((4, 300), (2, 700), (2, 700)))
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = fa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _assert_flash_held(got, want)
+
+
+def test_flash_attention_bf16_reads_unaligned_views(cuda):
+    """Views whose row starts are 2 bytes past a 16-byte boundary take the
+    tensor-core kernel's element loads: equal to the result on contiguous
+    copies (16-byte copies), bit for bit."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.tensor(rng.normal(size=(2, n, 333, 72)).astype(
+        np.float32), device=cuda).to(torch.bfloat16)[..., 1:65]
+        for n in (6, 3, 3))
+    assert q.data_ptr() % 16 != 0
+    out = torch.empty((2, 6, 333, 72), dtype=torch.bfloat16,
+                      device=cuda)[..., 1:65]
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=0, out=out)
+    want = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True, window=0)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 2
+    assert torch.equal(got, want)
+    _assert_flash_held(got, fa.flash_attention_plain(q, k, v))
 
 
 def test_attention_pallas_reads_model_layout_views(cuda):
