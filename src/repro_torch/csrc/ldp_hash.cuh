@@ -4,21 +4,41 @@
 // step both TPU kernels run on it.  The TPU kernels tile each row into
 // (256 x 1024) blocks and draw element e of block b from
 // murmur(e + u32(seed + b*7919)*2654435761 + stream*0x9E3779B9).  Here a flat
-// position p maps to b = p / 2^18 and e = p % 2^18 directly, so the stream is
-// the TPU's without its padding.  Both kernels add the noise through
-// `ldp_add_noise`, with explicitly rounded multiplies and adds (no
+// position p maps to b = p >> 18 and e = p - b*2^18, so the stream is the
+// TPU's without its padding.  Both kernels add the noise through
+// `ldp_noise_add`, with explicitly rounded multiplies and adds (no
 // contraction), so K1 and the unfused K4 -> K5 chain give the same bits.
+//
+// What this header does for the card: the murmur input is rewritten, mod
+// 2^32, as p + key_s + b*kTileStep, where key_s = u32(seed)*2654435761 +
+// s*0x9E3779B9 depends on the row alone (`noise_keys`, once per row) and
+// kTileStep = 7919*2654435761 - 2^18.  Every step is unsigned 32-bit
+// arithmetic, so the sum wraps exactly as the TPU's does: the same bits for
+// two fewer multiplies and no division an element.  What stays per element
+// is the noise itself: two 32-bit hashes, the precise logf, sqrtf and cosf
+// (no fast-math forms: they would change bits), and three rounded products.
 #pragma once
 
 #include <stdint.h>
 
 namespace repro_ldp {
 
-constexpr int kNoiseBlock = 256 * 1024;
+constexpr uint32_t kTileShift = 18;            // a TPU tile: 2^18 positions
+constexpr uint32_t kSeedMul = 2654435761u;
+constexpr uint32_t kStreamMul = 0x9E3779B9u;
+constexpr uint32_t kTileStep = 7919u * kSeedMul - (1u << kTileShift);
 
-__device__ __forceinline__ uint32_t murmur(uint32_t e, int32_t blk_seed,
-                                           uint32_t stream) {
-  uint32_t x = e + (uint32_t)blk_seed * 2654435761u + stream * 0x9E3779B9u;
+// The per-row parts of the murmur inputs of streams 1 and 2.
+struct NoiseKeys {
+  uint32_t k1, k2;
+};
+
+__device__ __forceinline__ NoiseKeys noise_keys(int32_t seed) {
+  const uint32_t s = (uint32_t)seed * kSeedMul;
+  return {s + kStreamMul, s + 2u * kStreamMul};
+}
+
+__device__ __forceinline__ uint32_t fmix(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
@@ -31,18 +51,22 @@ __device__ __forceinline__ float unit(uint32_t x) {
   return __fmul_rn((float)(x >> 8), 1.0f / 16777216.0f);  // exact
 }
 
-// u + sigma_s * BoxMuller(seed, p): the noised value of flat position p of a
-// row seeded with `seed`.
-__device__ __forceinline__ float ldp_add_noise(float u, float sigma_s,
-                                               int32_t seed, int p) {
-  const int blk = p / kNoiseBlock;
-  const uint32_t e = (uint32_t)(p - blk * kNoiseBlock);
-  const int32_t blk_seed = (int32_t)((uint32_t)seed + (uint32_t)blk * 7919u);
-  const float u1 = fmaxf(unit(murmur(e, blk_seed, 1u)), 1e-12f);
-  const float u2 = unit(murmur(e, blk_seed, 2u));
+// u + sigma_s * BoxMuller(row keys, p): the noised value of flat position p
+// of a row whose keys are `k`.
+__device__ __forceinline__ float ldp_noise_add(float u, float sigma_s,
+                                               NoiseKeys k, uint32_t p) {
+  const uint32_t x = p + (p >> kTileShift) * kTileStep;
+  const float u1 = fmaxf(unit(fmix(x + k.k1)), 1e-12f);
+  const float u2 = unit(fmix(x + k.k2));
   const float r = sqrtf(__fmul_rn(-2.0f, logf(u1)));
   const float theta = __fmul_rn(6.2831854820251465f, u2);
   return __fadd_rn(u, __fmul_rn(__fmul_rn(sigma_s, r), cosf(theta)));
+}
+
+// The same for one element of a row seeded with `seed` (keys made here).
+__device__ __forceinline__ float ldp_add_noise(float u, float sigma_s,
+                                               int32_t seed, uint32_t p) {
+  return ldp_noise_add(u, sigma_s, noise_keys(seed), p);
 }
 
 }  // namespace repro_ldp

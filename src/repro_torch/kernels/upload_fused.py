@@ -5,6 +5,9 @@ reference's signature; on CUDA tensors it launches the hand-written
 kernel in ``csrc/upload_fused.cu`` (one pass over the (C, N) cohort), on
 CPU tensors it runs `upload_fused_plain`, the PyTorch version of the same
 arithmetic (the reference's `upload_fused_reference` + `block_noise`).
+Besides its launch count, the wrapper tallies the shapes it launched at in
+``upload_fused_fleet.shapes``: (C, N, flags) -> launches, where flags is
+the kernel's bit set (1 sparsify, 2 clip scale, 4 noise, 8 nnz).
 
 The noise is the reference kernel's counter-hash Box–Muller stream
 (`kernels.ldp_noise.block_noise`, the stream K5 draws): node i draws
@@ -13,6 +16,7 @@ murmur(e + u32(seed_i + b·7919)·2654435761 + stream·0x9E3779B9).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
@@ -77,6 +81,15 @@ def _leaf_starts(boundaries: Tuple[int, ...], device: torch.device
     return torch.tensor(boundaries, dtype=torch.int32, device=device)
 
 
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a fresh copy of it when it does not start on a 16-byte
+    boundary (a view with a storage offset): the kernel moves its rows in
+    16-byte runs and takes no other start."""
+    if t is not None and t.data_ptr() % 16:
+        return t.clone()
+    return t
+
+
 def upload_fused_fleet(flat: torch.Tensor,
                        residuals: Optional[torch.Tensor],
                        thresholds: Optional[torch.Tensor],
@@ -118,6 +131,7 @@ def upload_fused_fleet(flat: torch.Tensor,
         check("seeds", seeds, (c,), torch.int32, dev)
     if apply_ldp:
         check("clip_scales", clip_scales, (c,), torch.float32, dev)
+    flat, residuals = _aligned(flat), _aligned(residuals)
     lib = _configure(_build.load("upload_fused"))
     up = torch.empty_like(flat)
     newr = torch.empty_like(flat) if do_sparsify else None
@@ -132,7 +146,9 @@ def upload_fused_fleet(flat: torch.Tensor,
         c, n, flags, _build.stream(dev))
     _build.check(rc, lib, "upload_fused_error_string")
     upload_fused_fleet.launches += 1
+    upload_fused_fleet.shapes[(c, n, flags)] += 1
     return up, newr, nnz
 
 
 upload_fused_fleet.launches = 0
+upload_fused_fleet.shapes = collections.Counter()

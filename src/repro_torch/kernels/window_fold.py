@@ -5,10 +5,13 @@ reference's signature; on CUDA tensors it launches the hand-written kernel
 in ``csrc/window_fold.cu``, on CPU tensors it runs `window_fold_plain`, a
 loop over arrivals with the same arithmetic: the compiled reference
 computes each gated step as fma(a, cur, b·omega), reproduced here with
-`core.numerics.fma_f32`.
+`core.numerics.fma_f32`.  Besides its launch count, the wrapper tallies
+the shapes it launched at in ``window_fold_fleet.shapes``: (C, N) ->
+launches.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -73,7 +76,9 @@ def window_fold_fleet(p_flat: torch.Tensor, om_flat: torch.Tensor,
         _build.stream(dev))
     _build.check(rc, lib, "window_fold_error_string")
     window_fold_fleet.launches += 1
+    window_fold_fleet.shapes[(c, n)] += 1
     return out, seq
 
 
 window_fold_fleet.launches = 0
+window_fold_fleet.shapes = collections.Counter()

@@ -115,6 +115,124 @@ def test_window_fold_kernel_matches_plain_bitwise(cuda, c, n):
     assert torch.equal(fk, fp) and torch.equal(sk, sp)
 
 
+def _flagged_upload(dev, k, sizes, flags, seed):
+    """K1's inputs for the kernel's flag bits (1 sparsify, 2 clip scale,
+    4 noise, 8 nnz): (args, leaf starts, need_nnz)."""
+    rng = np.random.default_rng(seed)
+    n = sum(sizes)
+    offs = tuple(int(b) for b in np.cumsum((0,) + tuple(sizes))[:-1])
+
+    def normal(*shape):
+        return torch.tensor(rng.normal(size=shape).astype(np.float32),
+                            device=dev)
+
+    flat, res = normal(k, n), normal(k, n)
+    thr = torch.tensor(rng.random((k, len(sizes))).astype(np.float32),
+                       device=dev)
+    seeds = torch.tensor(rng.integers(-2**31, 2**31, k).astype(np.int32),
+                         device=dev)
+    scales = torch.tensor((rng.random(k) + 0.5).astype(np.float32),
+                          device=dev)
+    args = (flat, res if flags & 1 else None, thr if flags & 1 else None,
+            seeds, scales if flags & 2 else None,
+            0.5 if flags & 4 else 0.0, 1.3)
+    return args, offs, bool(flags & 8)
+
+
+def _assert_upload_matches_plain(args, offs, need_nnz):
+    before = uf.upload_fused_fleet.launches
+    uk, rk, nk = uf.upload_fused_fleet(*args, boundaries=offs,
+                                       need_nnz=need_nnz)
+    up, rp, npl = uf.upload_fused_plain(*args, boundaries=offs,
+                                        need_nnz=need_nnz)
+    torch.cuda.synchronize()
+    assert uf.upload_fused_fleet.launches == before + 1
+    assert (nk is None) == (not need_nnz)
+    if need_nnz:
+        assert torch.equal(nk, npl)
+    if args[1] is not None:
+        assert torch.equal(rk.view(torch.int32), rp.view(torch.int32))
+    sigma_s = args[5] * args[6] if args[4] is not None else 0.0
+    if sigma_s == 0.0:
+        assert torch.equal(uk.view(torch.int32), up.view(torch.int32))
+    else:
+        assert float((uk - up).abs().max()) <= 2e-6 * max(1.0, sigma_s)
+    return uk, rk, nk
+
+
+@pytest.mark.parametrize("flags", [15, 14, 11, 9, 7, 6])
+@pytest.mark.parametrize("k,sizes", [
+    (5, (1,)), (5, (2,)), (5, (3,)),               # rows shorter than a run
+    (7, (4097,)), (7, (4098,)), (7, (4099,)),       # N = 1, 2, 3 mod 4
+    (6, (5, 1, 2, 3, 1, 4, 2049))])                 # starts inside runs
+def test_upload_fused_kernel_edges_match_plain(cuda, k, sizes, flags):
+    """The kernel moves 4-element runs on 16-byte boundaries, with a head
+    and a tail per row: rows of every length mod 4 and shorter than a run,
+    leaf starts inside a run (leaves of 1-3 elements put several in one),
+    with noise but no sparsification (flags 6, 14), nnz without the clip
+    scale (9), and the paper's paths' flags (7, 15)."""
+    _assert_upload_matches_plain(*_flagged_upload(cuda, k, sizes, flags,
+                                                  seed=k + flags))
+
+
+def test_upload_fused_kernel_takes_64_leaves_and_refuses_65(cuda):
+    sizes = tuple(range(1, 65))                     # 64 leaves, N = 2,080
+    _assert_upload_matches_plain(*_flagged_upload(cuda, 3, sizes, 15, 2))
+    args, offs, _ = _flagged_upload(cuda, 3, sizes + (7,), 15, 2)
+    before = uf.upload_fused_fleet.launches
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        uf.upload_fused_fleet(*args, boundaries=offs, need_nnz=True)
+    assert uf.upload_fused_fleet.launches == before
+
+
+def test_upload_fused_kernel_reads_unaligned_views(cuda):
+    """Inputs that start 4 bytes past a 16-byte boundary give the bits of
+    the same values in fresh tensors."""
+    args, offs, need_nnz = _flagged_upload(cuda, 3, (4099,), 15, 4)
+    aligned = _assert_upload_matches_plain(args, offs, need_nnz)
+    shifted = []
+    for t in args[:2]:
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view_as(t)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        shifted.append(view)
+    got = _assert_upload_matches_plain(tuple(shifted) + args[2:], offs,
+                                       need_nnz)
+    for x, y in zip(aligned, got):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.parametrize("c,n,share", [
+    (1, 4097, 1.0), (3, 300, 0.6), (37, 1000, 0.6), (40, 2049, 0.0),
+    (2100, 65, 0.6), (2100, 130, 0.6), (256, 20490, 0.7)])
+def test_window_fold_kernel_edges_match_plain_bitwise(cuda, c, n, share):
+    """The kernel keeps 32 arrivals of each column in flight: one arrival,
+    fewer than the ring holds (3), a count that is no multiple of it (37),
+    every gate off (the params pass through bitwise), more than two
+    1,024-arrival staging chunks (at 65 and 130 columns, whose last block
+    of 128 columns runs past the row's end), and the main path's
+    (256, 20490)."""
+    rng = np.random.default_rng(c + n)
+    p = torch.tensor(rng.normal(size=n).astype(np.float32), device=cuda)
+    om = torch.tensor(rng.normal(size=(c, n)).astype(np.float32),
+                      device=cuda)
+    gates = torch.tensor(rng.random(c) < share, device=cuda)
+    b = torch.tensor(rng.random(c).astype(np.float32), device=cuda)
+    a = 1.0 - b
+    before = wf.window_fold_fleet.launches
+    fk, sk = wf.window_fold_fleet(p, om, gates, a, b)
+    fp, sp = wf.window_fold_plain(p, om, gates, a, b)
+    torch.cuda.synchronize()
+    assert wf.window_fold_fleet.launches == before + 1
+    assert torch.equal(fk.view(torch.int32), fp.view(torch.int32))
+    assert torch.equal(sk.view(torch.int32), sp.view(torch.int32))
+    if share == 0.0:
+        assert torch.equal(fk.view(torch.int32), p.view(torch.int32))
+        assert torch.equal(sk.view(torch.int32),
+                           p.expand(c, n).view(torch.int32))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(2, 8, device=cuda)
     with pytest.raises(ValueError, match="float32"):
