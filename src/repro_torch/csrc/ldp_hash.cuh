@@ -63,10 +63,4 @@ __device__ __forceinline__ float ldp_noise_add(float u, float sigma_s,
   return __fadd_rn(u, __fmul_rn(__fmul_rn(sigma_s, r), cosf(theta)));
 }
 
-// The same for one element of a row seeded with `seed` (keys made here).
-__device__ __forceinline__ float ldp_add_noise(float u, float sigma_s,
-                                               int32_t seed, uint32_t p) {
-  return ldp_noise_add(u, sigma_s, noise_keys(seed), p);
-}
-
 }  // namespace repro_ldp

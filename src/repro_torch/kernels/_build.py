@@ -115,6 +115,15 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def aligned(t):
+    """``t``, or a fresh copy of it when it does not start on a 16-byte
+    boundary (a view with a storage offset): kernels that move rows in
+    16-byte runs take no other start."""
+    if t is not None and t.data_ptr() % 16:
+        return t.clone()
+    return t
+
+
 def require(kernel: str, name: str, t, shape, dtype, device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: a kernel takes nothing else."""

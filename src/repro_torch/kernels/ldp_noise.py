@@ -9,10 +9,13 @@ The noise is the reference kernel's counter-hash Box–Muller stream: row i
 draws element e of TPU tile b (a tile is 256 × 1024 flat positions) from
 murmur(e + u32(seed_i + b·7919)·2654435761 + stream·0x9E3779B9).
 `block_noise` computes it in int64 masked to 32 bits; the fused upload
-kernel (`kernels.upload_fused`, K1) draws the same stream.
+kernel (`kernels.upload_fused`, K1) draws the same stream.  Besides its
+launch count, the wrapper tallies the shapes it launched at in
+``ldp_perturb_fleet.shapes``: (K, N, σS) -> launches.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -98,6 +101,7 @@ def ldp_perturb_fleet(flat: torch.Tensor, seeds: torch.Tensor,
             ("seeds", seeds, (k,), torch.int32),
             ("clip_scales", clip_scales, (k,), torch.float32)):
         _build.require("ldp_noise", name, t, shape, dtype, dev)
+    flat = _build.aligned(flat)
     lib = _configure(_build.load("ldp_noise"))
     out = torch.empty_like(flat)
     p = _build.ptr
@@ -106,10 +110,12 @@ def ldp_perturb_fleet(flat: torch.Tensor, seeds: torch.Tensor,
         k, n, _build.stream(dev))
     _build.check(rc, lib, "ldp_noise_error_string")
     ldp_perturb_fleet.launches += 1
+    ldp_perturb_fleet.shapes[(k, n, sigma_s)] += 1
     return out
 
 
 ldp_perturb_fleet.launches = 0
+ldp_perturb_fleet.shapes = collections.Counter()
 
 
 def ldp_perturb_flat(flat: torch.Tensor, seed: torch.Tensor,

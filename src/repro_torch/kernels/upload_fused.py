@@ -81,15 +81,6 @@ def _leaf_starts(boundaries: Tuple[int, ...], device: torch.device
     return torch.tensor(boundaries, dtype=torch.int32, device=device)
 
 
-def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``t``, or a fresh copy of it when it does not start on a 16-byte
-    boundary (a view with a storage offset): the kernel moves its rows in
-    16-byte runs and takes no other start."""
-    if t is not None and t.data_ptr() % 16:
-        return t.clone()
-    return t
-
-
 def upload_fused_fleet(flat: torch.Tensor,
                        residuals: Optional[torch.Tensor],
                        thresholds: Optional[torch.Tensor],
@@ -131,7 +122,7 @@ def upload_fused_fleet(flat: torch.Tensor,
         check("seeds", seeds, (c,), torch.int32, dev)
     if apply_ldp:
         check("clip_scales", clip_scales, (c,), torch.float32, dev)
-    flat, residuals = _aligned(flat), _aligned(residuals)
+    flat, residuals = _build.aligned(flat), _build.aligned(residuals)
     lib = _configure(_build.load("upload_fused"))
     up = torch.empty_like(flat)
     newr = torch.empty_like(flat) if do_sparsify else None

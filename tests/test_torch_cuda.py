@@ -10,9 +10,10 @@ Tolerances: K1's residual', keep set and nnz bitwise, its noised upload
 within 2e-6 · max(1, σS) (the noise's log/cos are libm's in the kernel and
 PyTorch's CUDA math in the plain version); K2 bitwise (both compute each
 gated step as one fma(a, cur, b·ω)); K3 equal; K4 bitwise as int32 views;
-K5 within 2e-6 · max(1, σS), as K1; K1 against the K4 -> K3 -> K5 kernel
-chain bitwise (one noise header, the same rounded operations); K6 within
-1e-5 at unit-scale inputs in float32 (the kernel and the plain version sum
+K5 within 2e-6 · max(1, σS), as K1, and bitwise against K1 with flags 6
+or 2 (the same function from K1's own source); K1 against the K4 -> K3 ->
+K5 kernel chain bitwise (one noise header, the same rounded operations);
+K6 within 1e-5 at unit-scale inputs in float32 (the kernel and the plain version sum
 over up to 2,048 keys in other orders), plus one bf16 ulp of the larger
 value in bfloat16 (each rounds one float32 result once); K8 and K7 within
 5e-6 of the output's largest magnitude (y reaches 10-35; the kernels sum
@@ -373,6 +374,125 @@ def test_fused_kernel_equals_the_kernel_chain_bitwise(cuda, sigma):
     assert torch.equal(up1.view(torch.int32), up5.view(torch.int32))
     assert torch.equal(r1.view(torch.int32), r4.view(torch.int32))
     assert torch.equal(nnz1, nnz3)
+
+
+def _nnz_rows(dev, k, n, o, seed):
+    """(k, n) float32 rows in a buffer, starting ``o`` elements (4·o
+    bytes) past a 16-byte boundary: row i is all zeros (with -0.0 among
+    them), all nonzero or of mixed sparsity by (i + o) mod 4, and the last
+    row holds a -0.0 and a NaN."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(k, n, generator=gen, device=dev)
+    share = torch.rand(k, 1, generator=gen, device=dev)
+    x = torch.where(torch.rand(k, n, generator=gen, device=dev) < share, x,
+                    torch.zeros((), device=dev))
+    kind = (torch.arange(k, device=dev)[:, None] + o) % 4
+    x = torch.where(kind == 0, torch.zeros((), device=dev), x)
+    x[kind[:, 0] == 0, ::3] = -0.0
+    x = torch.where((kind == 1) & (x == 0), torch.ones((), device=dev), x)
+    x[-1, n // 2] = float("nan")
+    x[-1, (n - 1) // 3] = -0.0
+    buf = torch.empty(k * n + 4, device=dev)
+    view = buf[o:o + k * n].view(k, n)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4 * o
+    return view
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 4097, 20490, 300001])
+@pytest.mark.parametrize("k", [1, 2, 7, 1000])
+def test_nnz_kernel_counts_rows_at_every_alignment(cuda, k, n):
+    """K3 reads 16-byte vectors between a scalar head and tail that it
+    finds from each segment's own address: rows starting 0, 4, 8 and 12
+    bytes off a 16-byte boundary (and, at odd n, every row at another
+    one), rows shorter than a vector, all-zero and all-nonzero rows, -0.0
+    (not counted) and NaN (counted), through both launches (one block a
+    row at K = 1,000; a row split over blocks into a zeroed output at K
+    <= 7 with long rows)."""
+    for o in range(4):
+        x = _nnz_rows(cuda, k, n, o, seed=k * 7 + n + o)
+        before = wb.nnz_fleet.launches
+        got = wb.nnz_fleet(x)
+        want = wb.nnz_plain(x)
+        torch.cuda.synchronize()
+        assert wb.nnz_fleet.launches == before + 1
+        assert torch.equal(got, want), (o, (got - want).abs().max())
+
+
+def test_nnz_kernel_runs_both_launches(cuda):
+    """The shapes above reach both launches on this card, and a split
+    row's blocks add up to the count of the whole row."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert not wb.nnz_grid(1000, 20490, sms).zeroed
+    assert not wb.nnz_grid(7, 5, sms).zeroed
+    split = wb.nnz_grid(1, 300001, sms)
+    assert split.zeroed and split.blocks_per_row > 1
+    x = torch.ones(1, 300001, device=cuda)
+    x[0, ::7] = 0.0
+    assert int(wb.nnz_fleet(x)[0]) == 300001 - len(range(0, 300001, 7))
+
+
+def _ldp_args(dev, k, n, sigma, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.normal(size=(k, n)).astype(np.float32), device=dev)
+    seeds = torch.tensor(rng.integers(-2**31, 2**31, k).astype(np.int32),
+                         device=dev)
+    scales = torch.tensor((rng.random(k) + 0.5).astype(np.float32),
+                          device=dev)
+    return x, seeds, scales, sigma, 1.3
+
+
+def _assert_ldp_is_k1(args):
+    """K5 on ``args`` against its plain version (2e-6 · max(1, σS)) and
+    bitwise against K1 with flags 6 (σS > 0) or 2 on the same inputs."""
+    x, seeds, scales, sigma, clip_s = args
+    before = ldp.ldp_perturb_fleet.launches
+    yk = ldp.ldp_perturb_fleet(*args)
+    yp = ldp.ldp_perturb_plain(*args)
+    y1 = uf.upload_fused_fleet(x, None, None, seeds, scales, sigma,
+                               clip_s)[0]
+    torch.cuda.synchronize()
+    assert ldp.ldp_perturb_fleet.launches == before + 1
+    assert float((yk - yp).abs().max()) <= 2e-6 * max(1.0, sigma * clip_s)
+    assert torch.equal(yk.view(torch.int32), y1.view(torch.int32))
+    return yk
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.5])
+@pytest.mark.parametrize("k,n", [
+    (5, 1), (5, 2), (5, 3), (4, 5),                 # rows shorter than a run
+    (7, 4097), (3, 20490), (6, 270001)])            # ragged; P > 2^18
+def test_ldp_noise_kernel_equals_k1_bitwise(cuda, k, n, sigma):
+    """K5 moves runs of 8 (noise) or 4 elements on 16-byte boundaries, with
+    a head and a tail per row; K1 with flags 6 or 2 computes the same
+    function from its own source, so the two agree bit for bit at every
+    head length 0-3 (rows of n = 1 mod 4 start at each), across the
+    second noise tile and on rows shorter than a run."""
+    heads = {(-(i * n)) % 4 for i in range(k)}
+    if n % 4 == 1 and k >= 4:
+        assert heads == {0, 1, 2, 3}
+    _assert_ldp_is_k1(_ldp_args(cuda, k, n, sigma, seed=k + n))
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.05])
+def test_ldp_noise_kernel_reads_unaligned_views(cuda, sigma):
+    """`ldp_perturb_flat(x[1])` of a (2, 20490) cohort starts 8 bytes off
+    a 16-byte boundary, as does a (3, 4097) view with a storage offset:
+    the wrapper hands the kernel an aligned copy, and the bits are those
+    of the aligned rows."""
+    x, seeds, scales, _, clip_s = _ldp_args(cuda, 2, 20490, sigma, seed=5)
+    assert x[1].data_ptr() % 16 == 8
+    y = _assert_ldp_is_k1((x, seeds, scales, sigma, clip_s))
+    y1 = ldp.ldp_perturb_flat(x[1], seeds[1], scales[1], sigma, clip_s)
+    assert torch.equal(y1.view(torch.int32), y[1].view(torch.int32))
+    args = _ldp_args(cuda, 3, 4097, sigma, seed=6)
+    buf = torch.empty(3 * 4097 + 2, device=cuda)
+    view = buf[2:].view(3, 4097)
+    view.copy_(args[0])
+    assert view.data_ptr() % 16 == 8
+    want = _assert_ldp_is_k1(args)
+    got = _assert_ldp_is_k1((view,) + args[1:])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_small_network_run_on_the_card_matches_the_cpu(cuda):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""K1 (upload_fused) and K2 (window_fold) alone on one NVIDIA GPU: what
-bounds each, and how the kernels of two source trees compare.
+"""K1 (upload_fused), K2 (window_fold), K3 (wire_bytes) and K5 (ldp_noise)
+alone on one NVIDIA GPU: what bounds each, and how the kernels of two
+source trees compare.
 
     python3 tools/upload_fold_probe.py [--src DIR] [--label NAME]
+                                       [--kernels k1,k2,k3,k5]
 
 Imports `repro_torch` from DIR (default: this checkout's ``src``; give
 another checkout's, such as an earlier commit unpacked with `git archive`
@@ -15,8 +17,18 @@ on the paper CNN's leaves with flags 15 (sigma 0.05) and 11 (noise off)
 and at (4, 300001) sigma 0.7, and K2 at (256, 20490), each beside a
 `Tensor.copy_` of the same bytes; then K2 and that copy again with an L2
 flush that leaves clean lines, to show what the dirty lines of the usual
-flush cost at K2's 42 MB.  Ends with one JSON line of the readings.  Compare two trees in one call, in turns:
-earlier, this, this, earlier.
+flush cost at K2's 42 MB.  ``--kernels`` picks among them (default
+``k1,k2``, the readings above): ``k3`` holds and times K3 at (1000, 20490)
+on rows of mixed sparsity beside `torch.count_nonzero` and a read of the
+same bytes (`sum(dim=1)`), then K3 and that read with the clean flush;
+``k5`` holds and times K5 at (1000, 20490) with sigma 0.05 and with
+sigma*S = 0 and at (4, 300001) sigma 0.7, each bitwise against K1 with
+flags 6 or 2 on the same inputs (timed beside it) and beside a `copy_` of
+the same bytes, and reads the SM clock under K5 for the issue estimate of
+each K5 instantiation (the instructions on a run's path,
+`chip_smoke.run_path_instructions`).  Ends with one JSON line of the
+readings.  Compare two trees in one call, in turns: earlier, this, this,
+earlier.
 """
 from __future__ import annotations
 
@@ -26,13 +38,22 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The libraries each pick builds (K5 is held against K1).
+LIBS = {"k1": ("upload_fused",), "k2": ("window_fold",),
+        "k3": ("wire_bytes",), "k5": ("ldp_noise", "upload_fused")}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=os.path.join(ROOT, "src"))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--kernels", default="k1,k2",
+                    help="comma-separated subset of k1, k2, k3, k5")
     args = ap.parse_args()
+    picked = set(args.kernels.split(","))
+    unknown = picked - set(LIBS)
+    if unknown:
+        ap.error(f"unknown kernels {sorted(unknown)}")
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
@@ -46,42 +67,81 @@ def main() -> int:
 
     print(f"{args.label}: repro_torch from {os.path.dirname(wf.__file__)}; "
           f"{cs.card_line()}")
+    names = sorted({lib for k in picked for lib in LIBS[k]})
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in ("upload_fused", "window_fold"):
+    for name in names:
         lib = _build.library_path(name)
         if lib.exists():
             lib.unlink()                    # rebuild to see ptxas's report
-    _, logs = _build.timed_build(("upload_fused", "window_fold"),
-                                 ("-Xptxas", "-v"))
+    _, logs = _build.timed_build(names, ("-Xptxas", "-v"))
+    sass = {}
     for name, log in logs.items():
-        sass = cs.sass_counts(_build.library_path(name))
+        sass[name] = cs.sass_listing(_build.library_path(name))
         for fn, regs in sorted(cs.ptxas_rows(log).items()):
-            print(f"  {name} {fn}: {regs}; SASS {sass[fn][0]} instructions")
+            run = cs.run_path_instructions(sass[name][fn])
+            print(f"  {name} {fn}: {regs}; SASS {len(sass[name][fn])} "
+                  f"instructions" + (f", {run} on a run's path"
+                                     if run is not None else ""))
 
     gen = torch.Generator().manual_seed(0)
     n_cnn = sum(cs.CNN_LEAVES)
-    readings = {
-        "k1_flags15": cs.check_upload_fused(torch, gen, 1000, cs.CNN_LEAVES,
-                                            0.05, 15, plain=False),
-        "k1_flags11": cs.check_upload_fused(torch, gen, 1000, cs.CNN_LEAVES,
-                                            0.05, 11, plain=False),
-        "k1_big": cs.check_upload_fused(torch, gen, 4,
-                                        (100000, 170000, 30001), 0.7, 15,
-                                        plain=False),
-        "k2": cs.check_window_fold(torch, gen, 256, n_cnn, plain=False)}
-    for key, res in readings.items():
-        tol = "2e-06" if key in ("k1_flags15", "k1_big") else "0 (bitwise)"
-        print(f"  {key}: " + cs.upload_fold_reading(tol, res))
-    fold = cs.window_fold_inputs(torch, gen, 256, n_cnn)
-    src = torch.ones(256 * n_cnn, device="cuda")
-    dst = torch.empty_like(src)
-    for clean in (False, True):
-        k2 = cs.time_ms(lambda: wf.window_fold_fleet(*fold), clean_l2=clean)
-        yard = cs.time_ms(lambda: dst.copy_(src), clean_l2=clean)
-        readings[f"k2 clean_l2={clean}"] = (k2, yard)
-        print(f"  k2 at (256, {n_cnn}), L2 flushed "
-              f"{'clean' if clean else 'dirty'}: kernel {k2!r} ms, copy_ "
-              f"of the same bytes {yard!r} ms")
+    readings = {}
+    if "k1" in picked:
+        for key, flags, c, sizes, sigma in (
+                ("k1_flags15", 15, 1000, cs.CNN_LEAVES, 0.05),
+                ("k1_flags11", 11, 1000, cs.CNN_LEAVES, 0.05),
+                ("k1_big", 15, 4, (100000, 170000, 30001), 0.7)):
+            readings[key] = cs.check_upload_fused(torch, gen, c, sizes, sigma,
+                                                  flags, plain=False)
+            tol = "2e-06" if flags & 4 else "0 (bitwise)"
+            print(f"  {key}: " + cs.upload_fold_reading(tol, readings[key]))
+    if "k2" in picked:
+        readings["k2"] = cs.check_window_fold(torch, gen, 256, n_cnn,
+                                              plain=False)
+        print("  k2: " + cs.upload_fold_reading("0 (bitwise)",
+                                                readings["k2"]))
+        fold = cs.window_fold_inputs(torch, gen, 256, n_cnn)
+        src = torch.ones(256 * n_cnn, device="cuda")
+        dst = torch.empty_like(src)
+        for clean in (False, True):
+            k2 = cs.time_ms(lambda: wf.window_fold_fleet(*fold),
+                            clean_l2=clean)
+            yard = cs.time_ms(lambda: dst.copy_(src), clean_l2=clean)
+            readings[f"k2 clean_l2={clean}"] = (k2, yard)
+            print(f"  k2 at (256, {n_cnn}), L2 flushed "
+                  f"{'clean' if clean else 'dirty'}: kernel {k2!r} ms, copy_ "
+                  f"of the same bytes {yard!r} ms")
+    if "k3" in picked:
+        from repro_torch.kernels import wire_bytes as wb
+        readings["k3"] = cs.check_nnz(torch, gen, 1000, n_cnn, plain=False)
+        print("  k3 at (1000, 20490): " + cs.nnz_reading(readings["k3"]))
+        x = cs.mixed_rows(torch, gen, 1000, n_cnn)
+        k3 = cs.time_ms(lambda: wb.nnz_fleet(x), clean_l2=True)
+        read = cs.time_ms(lambda: x.sum(dim=1), clean_l2=True)
+        readings["k3 clean_l2=True"] = (k3, read)
+        print(f"  k3 at (1000, {n_cnn}), L2 flushed clean: kernel {k3!r} ms, "
+              f"sum(dim=1) of the same bytes {read!r} ms")
+    if "k5" in picked:
+        from repro_torch.kernels import ldp_noise as ldp
+        for key, c, n, sigma in (("k5", 1000, n_cnn, 0.05),
+                                 ("k5_quiet", 1000, n_cnn, 0.0),
+                                 ("k5_big", 4, 300001, 0.7)):
+            readings[key] = cs.check_ldp(torch, gen, c, n, sigma,
+                                         plain=False)
+            print(f"  {key} at ({c}, {n}) sigma {sigma}: "
+                  + cs.ldp_reading(sigma, readings[key]))
+        k5_args = cs.ldp_inputs(torch, gen, 1000, n_cnn, 0.05)
+        clock = readings["sm_clock_mhz"] = cs.sm_clock_mhz(
+            torch, lambda: ldp.ldp_perturb_fleet(*k5_args))
+        print(f"  SM clock under K5: {clock!r} MHz")
+        for fn, ins in sorted(sass["ldp_noise"].items()):
+            run, per = cs.run_path_instructions(ins), 8 if "ILb1E" in fn else 4
+            if run is None:                 # no 16-byte runs to walk
+                continue
+            est = cs.issue_ms(run / per, 1000 * n_cnn, clock)
+            readings[f"k5 issue {fn}"] = est
+            print(f"  {fn}: {run} instructions on a run's path of {per} "
+                  f"elements: issue estimate at (1000, {n_cnn}) {est!r} ms")
     print(json.dumps({"label": args.label, "card": cs.card_line(),
                       "readings": readings}))
     return 0
