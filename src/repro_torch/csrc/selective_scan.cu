@@ -13,37 +13,54 @@
 // Layout of the work: each channel's N states are spread over N / NPT lanes
 // (NPT = min(8, N) states in each lane's registers); a block of 128
 // threads holds 128 / (N / NPT) channels.  At falcon-mamba's N = 16 that is
-// 2 lanes a channel, 64 channels a block and 512 blocks (the fastest of 1,
-// 2, 4, 8 and 16 states a lane at that shape on an H100).  A tile of 32
-// time steps of B and C (shared by the block's channels) and of x and dt
-// (the block's channels, read coalesced along d) is staged in shared
-// memory; each step's y is reduced over the channel's lanes by shuffles
-// and staged, and the tile's y is written coalesced.  Ragged L and D are
-// bounds checks, not padding (the TPU wrapper's padded steps have dt = 0
-// and change nothing).
+// 2 lanes a channel, 64 channels a block, 512 blocks, all resident at once
+// (15.5 warps an SM, at most 128 registers a thread so that four blocks
+// share an SM), each lane with eight independent state chains a step.  N
+// is a template parameter, so the lanes a channel, the channels a block,
+// the shuffles and every shared-memory offset are constants.
+//
+// The time axis goes in tiles of 32 steps, double-buffered in shared
+// memory: the next tile's x, dt (the block's channels) and B, C (shared by
+// the block's channels) are in flight by `cp.async` while this tile is
+// scanned, in 4-byte granules (a bf16 pair, zero-filled past the sequence
+// and past D), so a warp never waits on device memory between tiles; where
+// a row does not start on a 4-byte boundary the tile is read by element
+// loads instead (same tile).  x and dt stay in their own type in shared
+// memory and are converted where a lane reads them (one value a step); B
+// and C are converted once a tile into float32 rows that every lane reads
+// as float4.  Steps past the end of the sequence read dt = 0 and B = 0, so
+// they leave h as it is (exp(0) = 1, 1 * h + 0 = h) and the scan always
+// runs whole tiles.  Each step's y is reduced over the channel's lanes by
+// shuffles into a float32 tile, written in 16-byte runs of the block's
+// channels where the rows allow (element stores at a ragged edge).
 //
 // Arithmetic, as the plain version's: inputs read as float32 (bf16
 // converted exactly), the decay expf(dt * A) with the precise expf, the
 // update rounded as a product, a product and a sum (__fmul_rn / __fadd_rn,
 // so the compiler contracts nothing into an fma), y summed in float32 and
-// rounded once to x's dtype, h_final in float32.
+// rounded once to x's dtype, h_final in float32.  The time axis is not
+// split: every state is the sequential recursion of the plain version.
 //
 // What bounds it on the card: at falcon-mamba-7b's shape (4, 2048, 8192),
-// N 16, bf16, the bytes are x, dt and y (134 MB each) and the work 1.07e9
-// (t, d, n) states, each an expf, three products, a sum and the y fma: both
-// bounds near 0.12 ms.  The sequential time axis is the real limit: each
-// lane runs a 2,048-step dependent chain, so the card must keep many
-// channels in flight (32,768 channels x N / NPT lanes) to hide it; the
-// precise expf per state and step is the likely pace-setter (unmeasured).
+// N 16, bf16, the bytes are x, dt and y (134 MB each): 0.121 ms.  The work
+// is 1.07e9 (t, d, n) state-steps, each a product, the precise expf (eight
+// instructions, one of them on the special-function unit), three rounded
+// operations and the y fma, about 15 instructions a state-step with the
+// step's loads and shuffle: instruction issue at the SM clock, not bytes,
+// bounds it (chip_smoke.py prints the estimate from this library's SASS).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <initializer_list>
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTL = 32;   // time steps per staged tile
-constexpr int kNPT = 8;   // states per lane (fewer when N < 8)
+constexpr int kMinBlocks = 4;  // blocks an SM: at most 128 registers a thread
+constexpr int kTL = 32;        // time steps per tile
+constexpr int kNPT = 8;        // states per lane (fewer when N < 8)
 
 struct Params {
   const void* x;
@@ -55,72 +72,184 @@ struct Params {
   float* h;
   int B, L, D, N;
   long long xs[2], dts[2], bs[2], cs[2];  // batch and time strides (elements)
+  int vec;  // every row of x, dt, B and C starts on a 4-byte boundary
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
-template <typename T, int NPT>
-__global__ void __launch_bounds__(kThreads) selective_scan_kernel(
-    const Params P) {
-  const int lpc = P.N / NPT;        // lanes per channel
-  const int cpb = kThreads / lpc;   // channels per block
-  extern __shared__ float smem[];
-  float* Bs = smem;                 // [kTL][N]
-  float* Cs = Bs + kTL * P.N;       // [kTL][N]
-  float* Xs = Cs + kTL * P.N;       // [kTL][cpb]
-  float* Ds = Xs + kTL * cpb;       // [kTL][cpb]
-  float* Ys = Ds + kTL * cpb;       // [kTL][cpb]
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 4 bytes from global to shared memory, of which the first `bytes` are read
+// and the rest zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// COLS values (at least 2 for bf16 with `vec`) of each of kTL rows (rows
+// past `vrows` and columns past `vcols` zero) from src (row stride rs
+// elements, columns contiguous) into dst ([kTL][COLS]): by cp.async in
+// 4-byte granules with `vec`, else by element loads.
+template <typename T, int COLS>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long rs,
+                                      int vrows, int vcols, bool vec,
+                                      int tid) {
+  constexpr int G = 4 / sizeof(T);  // values a granule
+  if (vec) {
+    constexpr int PER = COLS / G;
+    for (int e = tid; e < kTL * PER; e += kThreads) {
+      const int r = e / PER, k = G * (e % PER);
+      const int n = r < vrows ? min(G, vcols - k) : 0;
+      const T* from = n > 0 ? src + r * rs + k : src;
+      cp_async4(dst + r * COLS + k, from, n > 0 ? n * (int)sizeof(T) : 0);
+    }
+  } else {
+    for (int e = tid; e < kTL * COLS; e += kThreads) {
+      const int r = e / COLS, k = e % COLS;
+      dst[e] = r < vrows && k < vcols ? src[r * rs + k] : T(0.0f);
+    }
+  }
+}
+
+// A lane's NPT values of a float32 row (16-byte aligned where NPT is a
+// multiple of 4), as float4 loads where they fit.
+template <int NPT>
+__device__ __forceinline__ void load_row(float (&v)[NPT], const float* p) {
+  if constexpr (NPT % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < NPT; j += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p + j);
+      v[j] = u.x;
+      v[j + 1] = u.y;
+      v[j + 2] = u.z;
+      v[j + 3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NPT; ++j) v[j] = p[j];
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    selective_scan_kernel(const Params P) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int NPT = N < kNPT ? N : kNPT;
+  constexpr int LPC = N / NPT;         // lanes per channel
+  constexpr int CPB = kThreads / LPC;  // channels per block
+  constexpr int STAGE = kTL * (2 * CPB + 2 * N);  // one stage: X, Dt, B, C
+  extern __shared__ float4 smem4[];
+  float* Ys = reinterpret_cast<float*>(smem4);  // [kTL][CPB]
+  float* Bf = Ys + kTL * CPB;                   // [kTL][N] (bf16 only)
+  float* Cf = Bf + (kF32 ? 0 : kTL * N);        // [kTL][N] (bf16 only)
+  T* raw = reinterpret_cast<T*>(Cf + (kF32 ? 0 : kTL * N));
 
   const int tid = threadIdx.x;
-  const int part = tid % lpc, cl = tid / lpc;
-  const int d0 = blockIdx.x * cpb, d = d0 + cl, b = blockIdx.y;
+  const int part = tid % LPC, cl = tid / LPC;
+  const int d0 = blockIdx.x * CPB, d = d0 + cl, b = blockIdx.y;
   const bool live = d < P.D;
   const int n0 = part * NPT;
-  const T* xp = static_cast<const T*>(P.x) + b * P.xs[0];
-  const T* dp = static_cast<const T*>(P.dt) + b * P.dts[0];
+  const int dcols = min(CPB, P.D - d0);  // the block's real channels
+  const T* xp = static_cast<const T*>(P.x) + b * P.xs[0] + d0;
+  const T* dp = static_cast<const T*>(P.dt) + b * P.dts[0] + d0;
   const T* bp = static_cast<const T*>(P.b) + b * P.bs[0];
   const T* cp = static_cast<const T*>(P.c) + b * P.cs[0];
-  T* yp = static_cast<T*>(P.y) + (long long)b * P.L * P.D;
+  T* yp = static_cast<T*>(P.y) + (long long)b * P.L * P.D + d0;
+
+  auto issue = [&](int t0) {  // tile t0's inputs into its stage
+    T* st = raw + ((t0 / kTL) & 1) * STAGE;
+    const int rows = min(kTL, P.L - t0);
+    stage<T, CPB>(st, xp + t0 * P.xs[1], P.xs[1], rows, dcols, P.vec, tid);
+    stage<T, CPB>(st + kTL * CPB, dp + t0 * P.dts[1], P.dts[1], rows, dcols,
+                  P.vec, tid);
+    stage<T, N>(st + 2 * kTL * CPB, bp + t0 * P.bs[1], P.bs[1], rows, N,
+                P.vec, tid);
+    stage<T, N>(st + 2 * kTL * CPB + kTL * N, cp + t0 * P.cs[1], P.cs[1],
+                rows, N, P.vec, tid);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // The tile's y: 16-byte runs of the block's channels where every run
+  // starts on a 16-byte boundary, else element stores.
+  auto drain = [&](int t0) {
+    constexpr int V = 16 / sizeof(T);
+    const int rows = min(kTL, P.L - t0);
+    T* yt = yp + (long long)t0 * P.D;
+    if (dcols == CPB && CPB % V == 0 && P.D % V == 0) {
+      constexpr int PER = CPB / V;
+      for (int e = tid; e < rows * PER; e += kThreads) {
+        const int r = e / PER, k = V * (e % PER);
+        const float* v = Ys + r * CPB + k;
+        uint4 out;
+        if constexpr (kF32) {
+          out = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                           __float_as_uint(v[2]), __float_as_uint(v[3]));
+        } else {
+          uint32_t w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const __nv_bfloat162 pr =
+                __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+            w[i] = *reinterpret_cast<const uint32_t*>(&pr);
+          }
+          out = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+        *reinterpret_cast<uint4*>(yt + (long long)r * P.D + k) = out;
+      }
+    } else {
+      for (int e = tid; e < rows * CPB; e += kThreads) {
+        const int r = e / CPB, k = e % CPB;
+        if (k < dcols) yt[(long long)r * P.D + k] = T(Ys[e]);
+      }
+    }
+  };
 
   float a[NPT], h[NPT];
 #pragma unroll
   for (int j = 0; j < NPT; ++j) {
-    a[j] = live ? P.a[(long long)d * P.N + n0 + j] : 0.0f;
+    a[j] = live ? P.a[(long long)d * N + n0 + j] : 0.0f;
     h[j] = 0.0f;
   }
 
+  issue(0);
   for (int t0 = 0; t0 < P.L; t0 += kTL) {
-    const int steps = min(kTL, P.L - t0);
-    __syncthreads();  // the previous tile's readers and writers are done
-    for (int e = tid; e < steps * P.N; e += kThreads) {
-      const int s = e / P.N, n = e % P.N;
-      Bs[e] = load_f32(bp + (t0 + s) * P.bs[1] + n);
-      Cs[e] = load_f32(cp + (t0 + s) * P.cs[1] + n);
-    }
-    for (int e = tid; e < steps * cpb; e += kThreads) {
-      const int s = e / cpb, dd = d0 + e % cpb;
-      float xv = 0.0f, dv = 0.0f;
-      if (dd < P.D) {
-        xv = load_f32(xp + (t0 + s) * P.xs[1] + dd);
-        dv = load_f32(dp + (t0 + s) * P.dts[1] + dd);
+    const T* st = raw + ((t0 / kTL) & 1) * STAGE;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // tile t0 landed; the previous tile is scanned
+    if (t0 + kTL < P.L) issue(t0 + kTL);
+    const T* Xt = st;
+    const T* Dt = st + kTL * CPB;
+    const float* Bt;
+    const float* Ct;
+    if constexpr (kF32) {
+      Bt = reinterpret_cast<const float*>(st + 2 * kTL * CPB);
+      Ct = Bt + kTL * N;
+    } else {
+      const T* Br = st + 2 * kTL * CPB;
+      for (int e = tid; e < kTL * N; e += kThreads) {
+        Bf[e] = to_f32(Br[e]);
+        Cf[e] = to_f32(Br[kTL * N + e]);
       }
-      Xs[e] = xv;
-      Ds[e] = dv;
+      Bt = Bf;
+      Ct = Cf;
     }
-    __syncthreads();
+    if (t0 > 0) drain(t0 - kTL);
+    __syncthreads();  // B and C converted, the previous y drained
 
-    for (int s = 0; s < steps; ++s) {
-      const float dtv = Ds[s * cpb + cl];
-      const float dxv = __fmul_rn(dtv, Xs[s * cpb + cl]);
-      const float* bt = Bs + s * P.N + n0;
-      const float* ct = Cs + s * P.N + n0;
+#pragma unroll 2
+    for (int s = 0; s < kTL; ++s) {
+      const float dtv = to_f32(Dt[s * CPB + cl]);
+      const float dxv = __fmul_rn(dtv, to_f32(Xt[s * CPB + cl]));
+      float bt[NPT], ct[NPT];
+      load_row<NPT>(bt, Bt + s * N + n0);
+      load_row<NPT>(ct, Ct + s * N + n0);
       float y = 0.0f;
 #pragma unroll
       for (int j = 0; j < NPT; ++j) {
@@ -128,46 +257,52 @@ __global__ void __launch_bounds__(kThreads) selective_scan_kernel(
         h[j] = __fadd_rn(__fmul_rn(decay, h[j]), __fmul_rn(dxv, bt[j]));
         y = fmaf(h[j], ct[j], y);
       }
-      for (int o = 1; o < lpc; o <<= 1)
+#pragma unroll
+      for (int o = 1; o < LPC; o <<= 1)
         y += __shfl_xor_sync(0xffffffffu, y, o);
-      if (part == 0) Ys[s * cpb + cl] = y;
-    }
-    __syncthreads();
-    for (int e = tid; e < steps * cpb; e += kThreads) {
-      const int s = e / cpb, dd = d0 + e % cpb;
-      if (dd < P.D) store_f32(yp + (long long)(t0 + s) * P.D + dd, Ys[e]);
+      if (part == 0) Ys[s * CPB + cl] = y;
     }
   }
+  __syncthreads();
+  drain((P.L - 1) / kTL * kTL);
 
   if (live) {
 #pragma unroll
     for (int j = 0; j < NPT; ++j)
-      P.h[((long long)b * P.D + d) * P.N + n0 + j] = h[j];
+      P.h[((long long)b * P.D + d) * N + n0 + j] = h[j];
   }
 }
 
-template <typename T, int NPT>
+template <typename T, int N>
 int launch(const Params& P, cudaStream_t stream) {
-  const int lpc = P.N / NPT, cpb = kThreads / lpc;
-  const size_t bytes = sizeof(float) * (size_t)kTL * (2 * P.N + 3 * cpb);
+  constexpr int NPT = N < kNPT ? N : kNPT;
+  constexpr int CPB = kThreads / (N / NPT);
+  constexpr size_t conv = std::is_same<T, float>::value ? 0 : 2 * kTL * N;
+  constexpr size_t bytes = sizeof(float) * (kTL * CPB + conv) +
+                           sizeof(T) * 2 * kTL * (2 * CPB + 2 * N);
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        selective_scan_kernel<T, NPT>,
+        selective_scan_kernel<T, N>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((P.D + cpb - 1) / cpb, P.B);
-  selective_scan_kernel<T, NPT><<<grid, kThreads, bytes, stream>>>(P);
+  const dim3 grid((P.D + CPB - 1) / CPB, P.B);
+  selective_scan_kernel<T, N><<<grid, kThreads, bytes, stream>>>(P);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_npt(const Params& P, int npt, cudaStream_t stream) {
-  switch (npt) {
+int launch_n(const Params& P, cudaStream_t stream) {
+  switch (P.N) {
     case 1: return launch<T, 1>(P, stream);
     case 2: return launch<T, 2>(P, stream);
     case 4: return launch<T, 4>(P, stream);
-    default: return launch<T, kNPT>(P, stream);
+    case 8: return launch<T, 8>(P, stream);
+    case 16: return launch<T, 16>(P, stream);
+    case 32: return launch<T, 32>(P, stream);
+    case 64: return launch<T, 64>(P, stream);
+    case 128: return launch<T, 128>(P, stream);
+    default: return launch<T, 256>(P, stream);
   }
 }
 
@@ -185,14 +320,20 @@ extern "C" int selective_scan_launch(
     long long bs0, long long bs1, long long cs0, long long cs1,
     void* stream_ptr) {
   if (B < 1 || B > 65535 || L < 1 || D < 1 || N < 1 || (N & (N - 1)) ||
-      N / kNPT > 32 || (dtype != 0 && dtype != 1))
+      N > 256 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   Params P{x, dt, b, c, a, y, h, B, L, D, N,
-           {xs0, xs1}, {dts0, dts1}, {bs0, bs1}, {cs0, cs1}};
+           {xs0, xs1}, {dts0, dts1}, {bs0, bs1}, {cs0, cs1}, 1};
+  if (dtype == 1) {  // bf16 pairs: every row on a 4-byte boundary
+    if (N == 1) P.vec = 0;
+    for (const void* p : {x, dt, b, c})
+      if ((uintptr_t)p % 4) P.vec = 0;
+    for (long long s : {xs0, xs1, dts0, dts1, bs0, bs1, cs0, cs1})
+      if (s % 2) P.vec = 0;
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int npt = N < kNPT ? N : kNPT;
-  return dtype == 0 ? launch_npt<float>(P, npt, stream)
-                    : launch_npt<__nv_bfloat16>(P, npt, stream);
+  return dtype == 0 ? launch_n<float>(P, stream)
+                    : launch_n<__nv_bfloat16>(P, stream);
 }
 
 extern "C" const char* selective_scan_error_string(int code) {

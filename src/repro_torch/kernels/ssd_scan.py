@@ -17,9 +17,11 @@ end.  The caller applies the D-skip and the gated norm, as
 is carried and so the order of the float32 sums; as in the reference the
 chunk is min(chunk, L) and the tail is zero-padded (dt = 0, so a padded
 step changes nothing).  On CUDA tensors it launches the hand-written
-kernel in ``csrc/ssd_scan.cu``, on CPU tensors it runs `ssd_scan_plain`.
-Both compute in float32 and write y in x's dtype, h (B, H, P, N) in
-float32.
+kernels in ``csrc/ssd_scan.cu`` (chunk-parallel: every chunk's own state
+and the carry over the chunks, then every chunk's output; bf16 on the
+tensor cores, float32 on the CUDA cores), on CPU tensors it runs
+`ssd_scan_plain`.  Both compute in float32 and write y in x's dtype, h
+(B, H, P, N) in float32.
 """
 from __future__ import annotations
 
@@ -32,16 +34,7 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232448           # the card's dynamic shared memory per block
-
-
-def smem_bytes(c: int, P: int, N: int) -> int:
-    """The kernel's shared memory at chunk ``c`` (c, P, N rounded up to
-    multiples of 4): C and B transposed (N × c each), dt·x (c × P), the
-    state (N × P), the decay-weighted scores (c × c, later B as c × N) and
-    three per-step rows, in float32."""
-    cp, pp, np_ = (-(-n // 4) * 4 for n in (c, P, N))
-    return 4 * (2 * np_ * cp + cp * pp + np_ * pp + cp * max(cp, np_)
-                + 3 * cp)
+MAX_P_BF16, MAX_N_BF16 = 64, 128    # the tensor-core kernels' widest tiles
 
 
 def _groups_to_shared(name: str, t: torch.Tensor) -> torch.Tensor:
@@ -114,8 +107,10 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
         v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [v] * 7 + [i] * 7 + [ll] * 10 + [v]
+        fn.argtypes = [v] * 10 + [i] * 7 + [ll] * 10 + [v]
         fn.restype = ctypes.c_int
+        lib.ssd_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.ssd_scan_smem_bytes.restype = ll
     return lib
 
 
@@ -128,8 +123,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     On the card x, dt, Bm and Cm are float32 or bfloat16, all of one
     dtype, read through their strides (x's, Bm's and Cm's last dim
     contiguous), so the model's views of the conv and in_proj outputs go in
-    without a copy; chunk, P and N must fit the kernel's shared memory
-    (`smem_bytes`)."""
+    without a copy; bfloat16 takes P up to 64 and N up to 128; chunk, P and
+    N must fit the kernels' shared memory (as the library sizes it,
+    ``ssd_scan_smem_bytes``).  The kernels
+    carry the chunks' states through a float32 scratch of B × H ×
+    ceil(L / chunk) × P × N values, and count each head's chunk states in
+    B × H int32."""
     Bm, Cm = _groups_to_shared("Bm", Bm), _groups_to_shared("Cm", Cm)
     _check(x, dt, Bm, Cm, A)
     if chunk < 1:
@@ -145,11 +144,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     if x.dtype not in _DTYPES:
         raise ValueError(f"ssd_scan: dtype {x.dtype} is not float32 or "
                          f"bfloat16")
-    if not (1 <= B <= 65535 and H >= 1 and P >= 1 and N >= 1
-            and smem_bytes(c, P, N) <= MAX_SMEM):
+    if x.dtype == torch.bfloat16 and (P > MAX_P_BF16 or N > MAX_N_BF16):
+        raise ValueError(f"ssd_scan: bfloat16 takes P up to {MAX_P_BF16} "
+                         f"and N up to {MAX_N_BF16}, got P {P}, N {N}")
+    lib = _configure(_build.load("ssd_scan"))
+    smem = lib.ssd_scan_smem_bytes(_DTYPES[x.dtype], c, P, N)
+    if not (1 <= B <= 65535 and 1 <= H <= 65535 and smem <= MAX_SMEM):
         raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, N {N}, "
                          f"chunk {c} outside the kernel's range (shared "
-                         f"memory {smem_bytes(c, P, N)} > {MAX_SMEM} bytes)")
+                         f"memory {smem} > {MAX_SMEM} bytes)")
     for name, t in (("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         if t.device != dev or t.dtype != x.dtype:
             raise ValueError(f"ssd_scan: {name} must be {x.dtype} on "
@@ -161,13 +164,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
     _build.require("ssd_scan", "A", A, (H,), torch.float32, dev)
     y = torch.empty((B, L, H, P), dtype=x.dtype, device=dev)
     h = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-    lib = _configure(_build.load("ssd_scan"))
+    nc = -(-L // c)
+    states = torch.empty((B, H, nc, P, N), dtype=torch.float32, device=dev)
+    decays = torch.empty((B, H, nc), dtype=torch.float32, device=dev)
+    written = torch.zeros((B, H), dtype=torch.int32, device=dev)
     p = _build.ptr
     strides = [*x.stride()[:3], *dt.stride(), *Bm.stride()[:2],
                *Cm.stride()[:2]]
     rc = lib.ssd_scan_launch(
-        p(x), p(dt), p(Bm), p(Cm), p(A), p(y), p(h), _DTYPES[x.dtype],
-        B, L, H, P, N, c, *strides, _build.stream(dev))
+        p(x), p(dt), p(Bm), p(Cm), p(A), p(y), p(h), p(states), p(decays),
+        p(written), _DTYPES[x.dtype], B, L, H, P, N, c, *strides,
+        _build.stream(dev))
     _build.check(rc, lib, "ssd_scan_error_string")
     ssd_scan.launches += 1
     return y, h

@@ -725,6 +725,113 @@ def test_ssd_scan_reads_the_models_strided_views(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def _k7_args(dev, b, l, h, p, n, dtype, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn(b, l, h, p, generator=g, device=dev).to(dtype)
+    dt = (softplus(torch.randn(b, l, h, generator=g, device=dev))
+          * 0.1).to(dtype)
+    Bm, Cm = (torch.randn(b, l, n, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    A = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.5)
+    return x, dt, Bm, Cm, A
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,l,h,p,n", [
+    (2, 1, 7, 16, 16),          # one step
+    (1, 127, 1, 64, 64),        # chunk - 1
+    (2, 128, 7, 40, 40),        # one whole chunk; P, N not multiples of 16
+    (1, 129, 64, 16, 64),       # chunk + 1
+    (2, 1000, 7, 64, 16),       # ragged last chunk
+    (1, 1000, 64, 40, 64),
+    (1, 300, 1, 64, 40),
+])
+def test_ssd_scan_kernel_routes_match_plain_at_the_edges(cuda, b, l, h, p,
+                                                         n, dtype):
+    """Both routes (bf16 on the tensor cores, float32 on the CUDA cores) at
+    chunk 128 around its edges, one and many heads, P and N at 16, 64 and
+    40: within the phase-3 limits of the plain version."""
+    args = _k7_args(cuda, b, l, h, p, n, dtype, seed=l + h + p)
+    before = sd.ssd_scan.launches
+    y, hf = sd.ssd_scan(*args, chunk=128)
+    yp, hp = sd.ssd_scan_plain(*args, chunk=128)
+    torch.cuda.synchronize()
+    assert sd.ssd_scan.launches == before + 1
+    assert y.dtype == dtype and hf.dtype == torch.float32
+    _scan_held(y, yp)
+    _scan_held(hf, hp)
+
+
+@pytest.mark.parametrize("offset", [8, 3])
+def test_ssd_scan_bf16_reads_the_models_strided_views(cuda, offset):
+    """bf16 x, B and C as views of one (B, L, conv_dim) tensor and dt as a
+    column block of another, as `models.ssm` hands them over, starting on a
+    16-byte boundary (offset 8: 16-byte copies) or not (offset 3: element
+    loads): equal to the kernel on contiguous copies, and within the limits
+    of the plain version."""
+    g = torch.Generator(cuda).manual_seed(offset)
+    H, P, N, L = 4, 64, 64, 300
+    xbc = torch.randn(2, L, offset + H * P + 2 * N + 5, generator=g,
+                      device=cuda).to(torch.bfloat16)
+    zdt = softplus(torch.randn(2, L, 3 * H, generator=g, device=cuda))
+    x = xbc[..., offset:offset + H * P].reshape(2, L, H, P)
+    Bm = xbc[..., offset + H * P:offset + H * P + N].reshape(2, L, 1, N)
+    Cm = xbc[..., offset + H * P + N:offset + H * P + 2 * N] \
+        .reshape(2, L, 1, N)
+    dt = (zdt[..., H:2 * H] * 0.1).to(torch.bfloat16)
+    A = -torch.exp(torch.randn(H, generator=g, device=cuda) * 0.5)
+    got = sd.ssd_scan(x, dt, Bm, Cm, A, chunk=128)
+    flat = (x.contiguous(), dt.contiguous(), Bm[:, :, 0].contiguous(),
+            Cm[:, :, 0].contiguous(), A)
+    want = sd.ssd_scan(*flat, chunk=128)
+    plain = sd.ssd_scan_plain(*flat, chunk=128)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _scan_held(got[0], plain[0])
+    _scan_held(got[1], plain[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 16, 32, 256])
+@pytest.mark.parametrize("b,l,d", [(2, 1, 45), (2, 77, 70)])
+def test_selective_scan_kernel_matches_plain_at_every_width(cuda, b, l, d, n,
+                                                            dtype):
+    """Every state width the lane layout takes, at a ragged D and at L = 1
+    and L not a multiple of the 32-step tile."""
+    g = torch.Generator(cuda).manual_seed(n + l)
+    x = torch.randn(b, l, d, generator=g, device=cuda).to(dtype)
+    dt = (softplus(torch.randn(b, l, d, generator=g, device=cuda))
+          * 0.1).to(dtype)
+    Bm, Cm = (torch.randn(b, l, n, generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    A = -torch.exp(torch.randn(d, n, generator=g, device=cuda) * 0.5)
+    y, h = ss.selective_scan(x, dt, Bm, Cm, A)
+    yp, hp = ss.selective_scan_plain(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    _scan_held(y, yp)
+    _scan_held(h, hp)
+
+
+def test_selective_scan_bf16_reads_unaligned_views(cuda):
+    """bf16 rows that start on an odd element (element loads, not 4-byte
+    copies) give the kernel's result on contiguous copies."""
+    g = torch.Generator(cuda).manual_seed(5)
+    b, l, d, n = 2, 100, 64, 16
+    xd = torch.randn(b, l, 2 * d + 1, generator=g, device=cuda)
+    xd[..., d + 1:] = softplus(xd[..., d + 1:]) * 0.1
+    xd = xd.to(torch.bfloat16)
+    bc = torch.randn(b, l, 2 * n + 1, generator=g,
+                     device=cuda).to(torch.bfloat16)
+    x, dt = xd[..., 1:d + 1], xd[..., d + 1:]
+    Bm, Cm = bc[..., 1:n + 1], bc[..., n + 1:]
+    A = -torch.exp(torch.randn(d, n, generator=g, device=cuda) * 0.5)
+    got = ss.selective_scan(x, dt, Bm, Cm, A)
+    want = ss.selective_scan(x.contiguous(), dt.contiguous(),
+                             Bm.contiguous(), Cm.contiguous(), A)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 8, 4, device=cuda)
     bc = torch.zeros(1, 8, 16, device=cuda)
@@ -738,6 +845,9 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                           bc, bc, A)
     with pytest.raises(ValueError, match="float32"):
         ss.selective_scan(x, x, bc, bc, A.double())
+    wide = torch.zeros(1, 8, 512, device=cuda)
+    with pytest.raises(ValueError, match="power of two"):
+        ss.selective_scan(x, x, wide, wide, torch.zeros(4, 512, device=cuda))
     x4 = torch.zeros(1, 8, 2, 64, device=cuda)
     dt = torch.zeros(1, 8, 2, device=cuda)
     big = torch.zeros(1, 8, 256, device=cuda)
@@ -750,6 +860,21 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="bfloat16"):
         sd.ssd_scan(x4.half(), dt.half(), big[..., :8].half(),
                     big[..., :8].half(), torch.zeros(2, device=cuda), chunk=4)
+    a2 = torch.zeros(2, device=cuda)
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="P up to 64"):      # tensor cores
+        sd.ssd_scan(torch.zeros(1, 8, 2, 72, device=cuda, dtype=bf),
+                    dt.to(bf), big[..., :16].to(bf), big[..., :16].to(bf),
+                    a2, chunk=4)
+    with pytest.raises(ValueError, match="N up to 128"):
+        sd.ssd_scan(x4.to(bf), dt.to(bf), big[..., :136].to(bf),
+                    big[..., :136].to(bf), a2, chunk=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        sd.ssd_scan(torch.zeros(1, 1024, 2, 64, device=cuda, dtype=bf),
+                    torch.zeros(1, 1024, 2, device=cuda, dtype=bf),
+                    torch.zeros(1, 1024, 128, device=cuda, dtype=bf),
+                    torch.zeros(1, 1024, 128, device=cuda, dtype=bf),
+                    a2, chunk=1024)
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
