@@ -484,7 +484,7 @@ def compile_plan(spec: ExperimentSpec) -> ExperimentPlan:
                    "sequential": "eq6_arrival_mix",
                    "buffered": "fedbuff_window_mix"}[mixing])
 
-    require_ported(spec, sigma)
+    require_ported(spec)
     return ExperimentPlan(
         spec=spec, mode=mode, engine=engine, mixing=mixing,
         mesh_devices=mesh_devices, sigma=sigma, detect_window=detect_window,
@@ -493,12 +493,10 @@ def compile_plan(spec: ExperimentSpec) -> ExperimentPlan:
         net_codec=net.codec if net.enabled else None)
 
 
-def require_ported(spec: ExperimentSpec, sigma: float) -> None:
+def require_ported(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError for a validated spec that needs a part of
-    the reference the port does not have yet (ROADMAP.md, open items).
-    Every `network.codec` is ported; the DDoS attack's flood uploads are
-    not."""
-    topo, atk = spec.topology, spec.fleet.attack
+    the reference the port does not have yet (ROADMAP.md, open items)."""
+    topo = spec.topology
 
     def missing(what: str, item: str) -> None:
         raise NotImplementedError(
@@ -510,18 +508,7 @@ def require_ported(spec: ExperimentSpec, sigma: float) -> None:
                 "JAX package only")
     if topo.kind == "mesh":
         missing("topology.kind='mesh'", "'Multi-device: torch.distributed'")
-    if spec.schedule.kind == "buffered":
-        missing("schedule.kind='buffered'", "'Buffered fold'")
-    if spec.defense.kind == "trust_weighted":
-        missing("defense.kind='trust_weighted'",
-                "'Trust defense and delta attacks'")
-    if atk.malicious_frac > 0 and atk.kind in ("sybil", "adaptive", "ddos"):
-        missing(f"fleet.attack.kind={atk.kind!r}",
-                "'Trust defense and delta attacks'")
     if spec.obs.enabled:
         missing("obs.enabled", "'Observability'")
     if spec.sim is not None:
         missing("the sim axis", "'Simulation service and checkpoints'")
-    if topo.backend == "reference" and sigma > 0:
-        missing("topology.backend='reference' with sigma > 0 (its noise is "
-                "jax.random.normal)", "'Reference-backend ALDP noise'")

@@ -69,12 +69,20 @@ def make_engine(plan: ExperimentPlan, population: Population, device=None):
         lr=spec.train.lr, alpha=spec.schedule.alpha,
         clip_s=spec.privacy.clip_s, sigma=plan.sigma,
         detect=spec.defense.detect, detect_s=spec.defense.detect_s,
-        defense_kind=spec.defense.kind,
+        defense_kind=spec.defense.kind, trust_eta=spec.defense.trust_eta,
+        trust_floor=spec.defense.trust_floor,
+        uncertainty_scale=spec.defense.uncertainty_scale,
         sparsify_ratio=spec.compression.sparsify_ratio,
         key_mode=plan.key_mode, backend=spec.topology.backend,
         seed=spec.seed)
     args = (population.params, population.loss_fn, population.acc_fn,
             population.node_data, population.test_data, population.cloud_test)
+    # the delta-level adversary stages ride the engines only when the
+    # spec staffs the fleet with malicious nodes
+    attack = (fleet_stages.AttackPlan.from_spec(
+                  spec.fleet.attack, population.n_nodes,
+                  population.malicious_ids)
+              if population.malicious_ids else None)
     n_params = tree_util.size(population.params)
     net = netsim_from_network(
         spec.network, population.profile.bandwidth_bps, n_params,
@@ -83,7 +91,7 @@ def make_engine(plan: ExperimentPlan, population: Population, device=None):
         return fleet.FleetEngine(
             *args, fleet.FleetConfig(**common), profile=population.profile,
             sampler=population.sampler or fleet.FullParticipation(),
-            net=net, device=device)
+            net=net, device=device, attack=attack)
     bpn = fleet_stages.bytes_per_node(n_params,
                                       spec.compression.sparsify_ratio)
     cfg = fleet.AsyncFleetConfig(
@@ -96,7 +104,7 @@ def make_engine(plan: ExperimentPlan, population: Population, device=None):
         detect_window=plan.detect_window)
     return fleet.AsyncFleetEngine(*args, cfg, profile=population.profile,
                                   sampler=population.sampler, net=net,
-                                  device=device)
+                                  device=device, attack=attack)
 
 
 class _SyncFleetStepper:
@@ -170,6 +178,27 @@ class _AsyncFleetStepper:
         _fleet_handback(self.state, self.eng)
 
 
+class _BufferedFleetStepper(_AsyncFleetStepper):
+    """Buffered (FedBuff) windows: the arrival budget window by window,
+    one record per window, with no record boundary inside the event
+    loop's cadence."""
+
+    def step(self) -> None:
+        state, eng = self.state, self.eng
+        rec = eng.run_window(
+            max_arrivals=self.plan.total_arrivals - self.processed,
+            evaluate=False)
+        self.processed += rec.n_processed
+        if state.accountant is not None:
+            state.accountant.step(rec.n_processed)
+        state.params = eng.params
+        state.history.append(RoundRecord(
+            rec.t, rec.version, eng.global_accuracy(), rec.comm_bytes,
+            rec.comp_time, rec.comm_time, rec.n_rejected,
+            bytes_source=self.src))
+        self.emitted += 1
+
+
 def _fleet_handback(state: RunState, eng) -> None:
     """Hand node-local state back so follow-on runs stay faithful."""
     state.key = eng.state.chain_key
@@ -190,6 +219,8 @@ def make_stepper(plan: ExperimentPlan, population: Population,
     eng = make_engine(plan, population, device=device)
     if plan.mode == "sync":
         return _SyncFleetStepper(plan, population, state, eng)
+    if plan.mixing == "buffered":
+        return _BufferedFleetStepper(plan, population, state, eng)
     return _AsyncFleetStepper(plan, population, state, eng)
 
 

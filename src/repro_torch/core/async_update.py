@@ -33,6 +33,12 @@ def _libm_powf():
     return fn
 
 
+def powf(x: float, e: float) -> np.float32:
+    """The C library's float32 ``powf``, which XLA's CPU backend lowers a
+    float32 power to (with pow(x, −1) rewritten to 1/x by the caller)."""
+    return np.float32(_libm_powf()(float(x), float(e)))
+
+
 def staleness_alpha(alpha: float, staleness: int,
                     a: float = 0.5) -> torch.Tensor:
     """FedAsync weight of the new model: (1−α)·(τ+1)^(−a) in float32, for
@@ -45,7 +51,7 @@ def staleness_alpha(alpha: float, staleness: int,
     x = np.float32(np.float32(staleness) + np.float32(1.0))
     e = np.float32(-a)
     p = (np.float32(1.0) / x if e == -1.0
-         else np.float32(_libm_powf()(float(x), float(e))))
+         else powf(x, e))
     return torch.tensor(np.float32(1.0 - alpha) * p, dtype=torch.float32)
 
 

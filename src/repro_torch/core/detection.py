@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import tree as tree_util
-from .numerics import interp_hi_first
+from .numerics import fma_f32, interp_hi_first
 
 
 def _gather_interp(srt: torch.Tensor, q: torch.Tensor, n: torch.Tensor
@@ -84,6 +84,68 @@ def masked_mean(trees, mask: torch.Tensor):
         return (x.to(torch.float32) * wf).sum(0) / denom
 
     return tree_util.map(agg, trees)
+
+
+def masked_weighted_mean(trees, mask: torch.Tensor, weights: torch.Tensor):
+    """Σ w_i x_i / Σ w_i over normal nodes (w zeroed outside ``mask``).
+    With uniform weights this is `masked_mean` bit for bit: the masked
+    weight sum is the participant count, and the ops are the same."""
+    w = mask.to(torch.float32) * weights.to(torch.float32)
+    total = w.sum()
+    denom = torch.where(total > 0, total, torch.ones_like(total))
+
+    def agg(x):
+        wf = w.reshape((-1,) + (1,) * (x.ndim - 1))
+        return (x.to(torch.float32) * wf).sum(0) / denom
+
+    return tree_util.map(agg, trees)
+
+
+# ---------------------------------------------------------------------------
+# trust scores (defense.kind="trust_weighted"): an EWMA of the verdicts
+# per node, floored and discounted by |A_j − ref| as aggregation weights
+# ---------------------------------------------------------------------------
+
+def trust_update(trust: torch.Tensor, accepted: torch.Tensor,
+                 seen: torch.Tensor, eta: float) -> torch.Tensor:
+    """trust += eta·(verdict − trust) for the nodes ``seen`` (verdict 1 if
+    accepted, 0 if rejected), contracted as the reference's compiled
+    engines compute it; everyone else keeps their score."""
+    target = accepted.to(torch.float32)
+    stepped = fma_f32(np.float32(eta), target - trust, trust)
+    return torch.where(seen, stepped, trust)
+
+
+def trust_weights(trust: torch.Tensor, accuracies: torch.Tensor,
+                  mask: torch.Tensor, floor: float, uncertainty_scale: float,
+                  ref: torch.Tensor = None) -> torch.Tensor:
+    """max(trust, floor) / (1 + scale·|A_j − ref|), the denominator
+    contracted as in the reference's compiled engines; ``ref`` defaults
+    to the accepted cohort's mean accuracy."""
+    acc = accuracies.to(torch.float32)
+    if ref is None:
+        m = mask.to(torch.float32)
+        ref = (acc * m).sum() / torch.clamp(m.sum(), min=1.0)
+    unc = fma_f32(np.float32(uncertainty_scale), torch.abs(acc - ref),
+                  np.float32(1.0))
+    return torch.clamp(trust, min=float(floor)) / unc
+
+
+def staleness_weights(taus, a: float) -> torch.Tensor:
+    """(τ+1)^−a per update, float32, as the reference's compiled program
+    computes it: pow(x, −1) as 1/x and every other power through the C
+    library's ``powf`` (`async_update.powf`), one value per update."""
+    from .async_update import powf
+
+    taus = np.maximum(np.asarray(taus), 0)
+    x = np.float32(1.0) + taus.astype(np.float32)
+    e = np.float32(-float(a))
+    if e == -1.0:
+        out = np.float32(1.0) / x
+    else:
+        out = np.array([powf(float(v), float(e)) for v in x.reshape(-1)],
+                       np.float32).reshape(x.shape)
+    return torch.as_tensor(out, dtype=torch.float32)
 
 
 def detect_fell_back(accuracies, thr, valid=None) -> bool:

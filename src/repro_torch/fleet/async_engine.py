@@ -22,8 +22,13 @@ uploads' measured nonzero counts are priced through the wire codec.
 
 With the auto window (min node compute time) arrivals are handled in the
 event loop's global time order, and the masked key chain is consumed as
-the reference consumes it.  The buffered (FedBuff) fold is not ported
-yet.
+the reference consumes it.  ``mixing="buffered"`` replaces step 3 by the
+FedBuff fold (`buffered_fold`): one threshold for the whole buffer, one
+masked (staleness- or trust-weighted) mean mixed once, and every
+processed node redispatched with the post-window model.  An
+`stages.AttackPlan` scales the sybil and adaptive uploads and floods the
+link draws; the trust-weighted defense scales each arrival's mixing
+coefficient by its trust weight in the control scan.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ from .. import tree as tree_util
 from ..core import async_update, detection
 from ..device import resolve
 from . import stages
-from .engine import ClientSampler, FleetConfig, NodeProfile, check_ported
+from .engine import ClientSampler, FleetConfig, NodeProfile
 from .state import gather_nodes, init_async_fleet_state
 
 
@@ -47,7 +52,7 @@ from .state import gather_nodes, init_async_fleet_state
 class AsyncFleetConfig(FleetConfig):
     """`FleetConfig` + the asynchronous scheduler knobs."""
     window: Optional[float] = None  # None => min node compute time
-    mixing: str = "sequential"      # sequential (buffered: not ported yet)
+    mixing: str = "sequential"      # sequential | buffered (FedBuff)
     staleness_adaptive: bool = False
     staleness_a: float = 0.5
     detect_warmup: int = 4
@@ -84,11 +89,17 @@ class FoldControl:
 
 def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
                  count: int, accs: torch.Tensor, vdisp_c: np.ndarray,
-                 arrived: np.ndarray) -> FoldControl:
+                 arrived: np.ndarray, trust_c=None) -> FoldControl:
     """The fold's scalar bookkeeping, in arrival order on the host: ring
-    pushes, Alg. 2 verdicts, staleness and versions.  Rejection never
-    depends on params, so splitting it from the param fold is exact."""
+    pushes, Alg. 2 verdicts, staleness and versions.  With ``trust_c``
+    (the cohort's trust rows) each arrival's omega coefficient b is
+    scaled by its `detection.trust_weights` weight against the mean of
+    the occupied ring slots (its own accuracy pushed), and a = 1 − b.
+    Neither rejection nor a coefficient depends on params, so splitting
+    them from the param fold is exact."""
     accs = accs.detach().to("cpu", torch.float32)
+    if trust_c is not None:
+        trust_c = trust_c.detach().to("cpu", torch.float32)
     c = accs.shape[0]
     v_seq = np.zeros(c, np.int32)
     rej = np.zeros(c, bool)
@@ -96,6 +107,7 @@ def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
     gates = np.zeros(c, bool)
     a = np.full(c, np.float32(cfg.alpha), np.float32)
     b = np.full(c, np.float32(1.0 - cfg.alpha), np.float32)
+    width = ring.shape[0]
     for i in range(c):
         if arrived[i]:
             ring, count = detection.ring_push(ring, count, accs[i])
@@ -104,11 +116,20 @@ def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
                                                cfg.detect_s,
                                                cfg.detect_warmup)
         taus[i] = version - int(vdisp_c[i])
-        if cfg.staleness_adaptive:
-            w = async_update.staleness_alpha(cfg.alpha, int(taus[i]),
-                                             cfg.staleness_a)
-            a[i] = float(torch.ones((), dtype=torch.float32) - w)
-            b[i] = float(w)
+        if cfg.staleness_adaptive or trust_c is not None:
+            w_new = (async_update.staleness_alpha(cfg.alpha, int(taus[i]),
+                                                  cfg.staleness_a)
+                     if cfg.staleness_adaptive else torch.tensor(b[i]))
+            if trust_c is not None:
+                occupied = torch.arange(width) < count
+                ref = (torch.where(occupied, ring,
+                                   torch.zeros_like(ring)).sum()
+                       / np.float32(max(min(count, width), 1)))
+                w_new = w_new * detection.trust_weights(
+                    trust_c[i], accs[i], torch.tensor(bool(arrived[i])),
+                    cfg.trust_floor, cfg.uncertainty_scale, ref=ref)
+            a[i] = float(torch.ones((), dtype=torch.float32) - w_new)
+            b[i] = float(w_new)
         gates[i] = bool(arrived[i]) and not rej[i]
         version += int(gates[i])
         v_seq[i] = version
@@ -116,12 +137,14 @@ def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
 
 
 def sequential_fold(cfg: AsyncFleetConfig, params, version, ring, count,
-                    omegas, accs, vdisp_c, arrived):
-    """Eq. (6)/mix_stale over arrival order with streaming detection.
+                    omegas, accs, vdisp_c, arrived, trust_c=None):
+    """Eq. (6)/mix_stale over arrival order with streaming detection (and
+    trust-scaled coefficients with ``trust_c``), the params through K2.
     Returns (params, control, per-arrival snapshots tree)."""
     from ..kernels.window_fold import window_fold_fleet
 
-    ctl = control_scan(cfg, version, ring, count, accs, vdisp_c, arrived)
+    ctl = control_scan(cfg, version, ring, count, accs, vdisp_c, arrived,
+                       trust_c)
     layout = stages.cohort_layout(omegas)
     dev = tree_util.leaves(params)[0].device
     final, seq = window_fold_fleet(
@@ -132,26 +155,60 @@ def sequential_fold(cfg: AsyncFleetConfig, params, version, ring, count,
     return layout.unflatten_one(final), ctl, layout.unflatten(seq)
 
 
+def buffered_fold(cfg: AsyncFleetConfig, params, version, ring, count,
+                  omegas, accs, vdisp_c, arrived, trust_c=None):
+    """FedBuff: one ring push per arrival, one threshold for the whole
+    buffer (rejected: held >= warmup and A <= Thr), staleness at mix time,
+    then the plain, staleness-weighted ((τ+1)^−a) or trust-weighted
+    masked mean mixed once by Eq. (6).  Returns (params, control, None):
+    every processed node receives the post-window model and version."""
+    accs_h = accs.detach().to("cpu", torch.float32)
+    c = accs_h.shape[0]
+    for i in range(c):
+        if arrived[i]:
+            ring, count = detection.ring_push(ring, count, accs_h[i])
+    rej = np.zeros(c, bool)
+    if cfg.detect:
+        thr = detection.ring_threshold(ring, count, cfg.detect_s)
+        if min(count, ring.shape[0]) >= cfg.detect_warmup:
+            rej = arrived & (accs_h <= thr).numpy()
+    mask_h = arrived & ~rej
+    taus = (version - np.asarray(vdisp_c, np.int64)).astype(np.int32)
+    dev = accs.device
+    mask = torch.as_tensor(mask_h, device=dev)
+    w = None
+    if trust_c is not None:
+        w = detection.trust_weights(trust_c, accs, mask, cfg.trust_floor,
+                                    cfg.uncertainty_scale)
+    if cfg.staleness_adaptive:
+        sw = detection.staleness_weights(taus, cfg.staleness_a).to(dev)
+        w = sw if w is None else w * sw
+    omega_mean = (detection.masked_mean(omegas, mask) if w is None
+                  else detection.masked_weighted_mean(omegas, mask, w))
+    if mask_h.any():
+        params = async_update.mix(params, omega_mean, cfg.alpha)
+        version += 1
+    ctl = FoldControl(version, ring, count, np.full(c, version, np.int32),
+                      rej, taus, mask_h, None, None)
+    return params, ctl, None
+
+
 class AsyncFleetEngine:
     """Event-driven async FEL over a stacked node fleet, one window per
     step, on one device (``device="cuda"`` by default).  ``sampler``
     models churn: an unavailable node loses its in-window upload (no mix,
     no detection entry) but is redispatched.  ``net`` is an optional
-    `net.NetSim`."""
+    `net.NetSim`, ``attack`` an optional `stages.AttackPlan`."""
 
     def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
                  node_data, test_data, cloud_test, cfg: AsyncFleetConfig,
                  profile: Optional[NodeProfile] = None,
                  sampler: Optional[ClientSampler] = None, net=None,
-                 device=None):
-        check_ported(cfg)
-        if cfg.mixing != "sequential":
-            raise NotImplementedError(
-                f"mixing={cfg.mixing!r}: the buffered fold is not ported "
-                f"yet (ROADMAP.md, 'Buffered fold')")
+                 device=None, attack=None):
         self.device = resolve(device)
         self.cfg = cfg
         self.net = net
+        self.attack = attack
         self.params = tree_util.map(lambda x: x.to(self.device), init_params)
         self.loss_fn = loss_fn
         self.acc_fn = acc_fn
@@ -173,7 +230,9 @@ class AsyncFleetEngine:
                              f"{self._window_len}")
         self.state = init_async_fleet_state(
             self.params, self.n_nodes, prng.PRNGKey(cfg.seed),
-            first_arrival=self._comp_s, detect_window=cfg.detect_window)
+            first_arrival=self._comp_s, detect_window=cfg.detect_window,
+            trust=cfg.trust_on,
+            throttle=attack is not None and attack.needs_throttle)
         self._window_idx = 0
         self.history: List[AsyncWindowRecord] = []
         self._window_fn = self._build_window()
@@ -195,6 +254,12 @@ class AsyncFleetEngine:
                                  device=self.device)
         data, dev = self.data, self.device
         need_nnz = self.net is not None     # byte-accurate pricing only
+        fold = (sequential_fold if cfg.mixing == "sequential"
+                else buffered_fold)
+        attack_stage = stages.make_delta_attack(self.attack)
+        mal_full = (self.attack.mask(dev) if attack_stage is not None
+                    else None)
+        adapt_scale = self.attack.adapt_poison_scale if self.attack else 1.0
 
         def window_fn(params, state, order, proc, avail, up_s):
             """order: node ids sorted by (arrival, id), truncated to the
@@ -217,6 +282,11 @@ class AsyncFleetEngine:
             local = local_train(disp_c, data.x, data.y, order_t, bidx)
             deltas = tree_util.map(lambda l, d: l - d.to(l.dtype), local,
                                    disp_c)
+            thr_c = (state.throttle.index_select(0, order_t)
+                     if state.throttle is not None else None)
+            if attack_stage is not None:
+                deltas = attack_stage(
+                    deltas, mal_full.index_select(0, order_t), thr_c)
             deltas, res_c, nnz = stages.upload_pipeline(
                 cfg, deltas, res_c, k2s, need_nnz=need_nnz)
             if need_nnz:    # lands with the accuracies the control scan
@@ -225,16 +295,25 @@ class AsyncFleetEngine:
                 acc_fn, disp_c, deltas, cloud_x, cloud_y)
 
             arrived = proc & avail
-            params, ctl, p_seq = sequential_fold(
+            trust_c = (state.trust.index_select(0, order_t)
+                       if state.trust is not None else None)
+            params, ctl, p_seq = fold(
                 cfg, params, state.version, state.acc_ring, state.acc_count,
-                omegas, accs, vdisp_c, arrived)
+                omegas, accs, vdisp_c, arrived, trust_c)
 
             # redispatch the processed slots (in place): the model right
-            # after their own arrival, its version, a fresh clock
+            # after their own arrival (buffered: the post-window model),
+            # its version, a fresh clock
             sel = torch.as_tensor(np.flatnonzero(proc), device=dev)
             nodes = order_t[sel]
-            tree_util.map(lambda f, p: f.index_copy_(0, nodes, p[sel]),
-                          state.dispatched, p_seq)
+            if p_seq is None:
+                tree_util.map(lambda f, p: f.index_copy_(
+                    0, nodes, p[None].expand((nodes.shape[0],)
+                                             + tuple(p.shape))),
+                    state.dispatched, params)
+            else:
+                tree_util.map(lambda f, p: f.index_copy_(0, nodes, p[sel]),
+                              state.dispatched, p_seq)
             tree_util.map(lambda f, p: f.index_copy_(0, nodes, p[sel]),
                           state.residuals, res_c)
             state.dispatched_version.index_copy_(
@@ -242,6 +321,20 @@ class AsyncFleetEngine:
             t_next = (t_arr + torch.as_tensor(up_s, device=dev)
                       + comp_s.index_select(0, order_t))
             state.next_arrival.index_copy_(0, nodes, t_next[sel])
+            # trust EWMA and the adaptive throttle from this window's
+            # verdicts (only arrived slots were judged; the others keep
+            # their rows)
+            if trust_c is not None or thr_c is not None:
+                arr_t = torch.as_tensor(arrived, device=dev)
+                rej_t = torch.as_tensor(ctl.rej, device=dev) & arr_t
+            if trust_c is not None:
+                t_new = detection.trust_update(trust_c, arr_t & ~rej_t,
+                                               arr_t, cfg.trust_eta)
+                state.trust.index_copy_(0, nodes, t_new[sel])
+            if thr_c is not None:
+                th_new = stages.adaptive_throttle_update(
+                    thr_c, rej_t, arr_t, adapt_scale)
+                state.throttle.index_copy_(0, nodes, th_new[sel])
             new_state = dataclasses.replace(
                 state, chain_key=chain_key, version=ctl.version,
                 acc_ring=ctl.ring, acc_count=ctl.count)
@@ -290,7 +383,8 @@ class AsyncFleetEngine:
         if self.net is not None:
             # one link draw per in-window upload, in arrival order; the
             # other slots never scatter a clock
-            draw = self.net.draw(sel)
+            flood = self.attack.flood_uploads if self.attack else 0
+            draw = self.net.draw(sel, extra_concurrency=flood)
             up_host = np.zeros(order.size, np.float64)
             up_host[proc] = draw.transfer_s
         else:

@@ -11,7 +11,10 @@ cohort's residual rows written back in place.  The PRNG chain and the
 minibatch draws are the reference's (`prng`), so with equal params the
 two engines train on the same batches.  With a `net.NetSim` attached,
 each round's measured nonzero counts are priced through the wire codec
-and the link model's transfer times replace the analytic uplink.
+and the link model's transfer times replace the analytic uplink.  An
+`stages.AttackPlan` scales the sybil and adaptive attackers' uploads and
+adds the DDoS flood to the link draws; the trust-weighted defense
+aggregates with `detection.trust_weights`.
 """
 from __future__ import annotations
 
@@ -146,7 +149,16 @@ class FleetConfig:
     key_mode: str = "parallel"      # parallel | sequential (seed-loop parity)
     backend: str = "reference"      # reference | pallas (the CUDA kernels)
     seed: int = 0
-    defense_kind: str = "percentile"
+    # trust-scored defense (api.DefenseSpec.kind="trust_weighted"): a
+    # verdict EWMA per node, trust/uncertainty-weighted aggregation
+    defense_kind: str = "percentile"   # percentile | trust_weighted
+    trust_eta: float = 0.25
+    trust_floor: float = 0.05
+    uncertainty_scale: float = 4.0
+
+    @property
+    def trust_on(self) -> bool:
+        return self.detect and self.defense_kind == "trust_weighted"
 
 
 @dataclass
@@ -161,18 +173,6 @@ class FleetRoundRecord:
     n_rejected: int
 
 
-def check_ported(cfg: FleetConfig) -> None:
-    """Raise for engine features the port does not have yet."""
-    if cfg.defense_kind != "percentile":
-        raise NotImplementedError(
-            f"defense.kind={cfg.defense_kind!r} is not ported yet "
-            f"(ROADMAP.md, 'Trust defense and delta attacks')")
-    if cfg.backend == "reference" and cfg.sigma > 0.0:
-        raise NotImplementedError(
-            "backend='reference' with sigma > 0 is not ported yet "
-            "(ROADMAP.md, 'Reference-backend ALDP noise')")
-
-
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
@@ -185,17 +185,18 @@ class FleetEngine:
     Args: init_params (dict of tensors), loss_fn (params, batch) -> (loss,
     aux), acc_fn (params, x, y) -> accuracy, node_data (list of numpy
     (x, y) shards or a `FleetData`), test_data, cloud_test, cfg, profile,
-    sampler, net (an optional `net.NetSim`) — as in the reference."""
+    sampler, net (an optional `net.NetSim`), attack (an optional
+    `stages.AttackPlan`) — as in the reference."""
 
     def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
                  node_data, test_data, cloud_test, cfg: FleetConfig,
                  profile: Optional[NodeProfile] = None,
                  sampler: Optional[ClientSampler] = None, net=None,
-                 device=None):
-        check_ported(cfg)
+                 device=None, attack=None):
         self.device = resolve(device)
         self.cfg = cfg
         self.net = net
+        self.attack = attack
         self.params = tree_util.map(lambda x: x.to(self.device), init_params)
         self.loss_fn = loss_fn
         self.acc_fn = acc_fn
@@ -204,8 +205,10 @@ class FleetEngine:
             self.params, node_data, test_data, cloud_test, profile,
             self.device)
         self.sampler = sampler or FullParticipation()
-        self.state = init_fleet_state(self.params, self.n_nodes,
-                                      prng.PRNGKey(cfg.seed))
+        self.state = init_fleet_state(
+            self.params, self.n_nodes, prng.PRNGKey(cfg.seed),
+            trust=cfg.trust_on,
+            throttle=attack is not None and attack.needs_throttle)
         self.history: List[FleetRoundRecord] = []
         self._t0 = 0.0
         self._round_fn = self._build_round()
@@ -229,8 +232,13 @@ class FleetEngine:
                                               cfg.lr, cfg.batch_size)
         data, dev = self.data, self.device
         need_nnz = self.net is not None     # byte-accurate pricing only
+        attack_stage = stages.make_delta_attack(self.attack)
+        mal_full = (self.attack.mask(dev) if attack_stage is not None
+                    else None)
+        adapt_scale = self.attack.adapt_poison_scale if self.attack else 1.0
 
-        def round_fn(params, residuals, chain_key, idx, valid):
+        def round_fn(params, residuals, chain_key, idx, valid, trust=None,
+                     throttle=None):
             c = idx.shape[0]
             idx_t = torch.as_tensor(idx, dtype=torch.int64, device=dev)
             valid_t = torch.as_tensor(valid, device=dev)
@@ -245,6 +253,11 @@ class FleetEngine:
                                 idx_t, bidx)
             deltas = tree_util.map(lambda l, g: l - g[None].to(l.dtype),
                                    local, params)
+            if attack_stage is not None:
+                deltas = attack_stage(
+                    deltas, mal_full.index_select(0, idx_t),
+                    throttle.index_select(0, idx_t)
+                    if throttle is not None else None)
             deltas, res_c, nnz = stages.upload_pipeline(
                 cfg, deltas, res_c, k2s, need_nnz=need_nnz)
             if need_nnz:            # lands by the time the mask is read
@@ -256,12 +269,29 @@ class FleetEngine:
                                                  cfg.detect_s)
             else:
                 mask, thr = valid_t, torch.zeros((), device=dev)
-            new_params = async_update.mix(
-                params, detection.masked_mean(omegas, mask), cfg.alpha)
-            # participants' residual rows advance in place
+            if trust is not None:
+                w = detection.trust_weights(
+                    trust.index_select(0, idx_t), accs, mask,
+                    cfg.trust_floor, cfg.uncertainty_scale)
+                omega_mean = detection.masked_weighted_mean(omegas, mask, w)
+            else:
+                omega_mean = detection.masked_mean(omegas, mask)
+            new_params = async_update.mix(params, omega_mean, cfg.alpha)
+            # participants' rows advance in place
             keep = torch.as_tensor(np.flatnonzero(valid), device=dev)
+            rows = idx_t[keep]
             tree_util.map(lambda full, part: full.index_copy_(
-                0, idx_t[keep], part[keep]), residuals, res_c)
+                0, rows, part[keep]), residuals, res_c)
+            if trust is not None:
+                t_new = detection.trust_update(
+                    trust.index_select(0, idx_t), mask, valid_t,
+                    cfg.trust_eta)
+                trust.index_copy_(0, rows, t_new[keep])
+            if throttle is not None:
+                th_new = stages.adaptive_throttle_update(
+                    throttle.index_select(0, idx_t), valid_t & ~mask,
+                    valid_t, adapt_scale)
+                throttle.index_copy_(0, rows, th_new[keep])
             m = {"accs": accs, "mask": mask, "thr": thr}
             if need_nnz:
                 m["nnz"] = nnz
@@ -273,11 +303,13 @@ class FleetEngine:
         r = self.state.round
         idx, valid = self.sampler.cohort(r, self.n_nodes)
         idx, valid = np.asarray(idx), np.asarray(valid, bool)
+        st = self.state
         self.params, residuals, chain_key, m = self._round_fn(
-            self.params, self.state.residuals, self.state.chain_key, idx,
-            valid)
+            self.params, st.residuals, st.chain_key, idx, valid, st.trust,
+            st.throttle)
         self.state = FleetState(residuals=residuals, chain_key=chain_key,
-                                round=r + 1)
+                                round=r + 1, trust=st.trust,
+                                throttle=st.throttle)
         n_part = int(valid.sum())
         n_rejected = int((valid & ~m["mask"].cpu().numpy()).sum())
         bpn = self.bytes_per_node()
@@ -289,7 +321,8 @@ class FleetEngine:
             # link draws replace the analytic uplink and the barrier waits
             # on the slowest upload
             sel_nodes = idx[valid]
-            draw = self.net.draw(sel_nodes)
+            flood = self.attack.flood_uploads if self.attack else 0
+            draw = self.net.draw(sel_nodes, extra_concurrency=flood)
             enc = self.net.commit(draw, m["nnz"].numpy()[valid])
             comm = float(draw.transfer_s.max()) if sel_nodes.size else 0.0
             comm_bytes = float(enc.sum())

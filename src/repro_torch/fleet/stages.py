@@ -6,10 +6,11 @@ Port of `repro.fleet.stages`:
             -> rebuild node models -> cloud-side accuracy
 
 The upload runs the hand-written fused kernel `kernels.upload_fused` (K1)
-on both spec backends: at σ=0 (the only "reference" setting the port
-takes) its keep set, residual' and nnz are bitwise the reference
-backend's per-leaf DGC split, since both use `leaf_threshold` and
-|c| >= thr.  When a network codec prices the wire and neither sparsify
+on both spec backends: its keep set, residual' and nnz are bitwise the
+reference backend's per-leaf DGC split, since both use `leaf_threshold`
+and |c| >= thr.  On the reference backend with σ > 0, K1 only splits
+(and counts); the clip and the reference's `jax.random.normal` noise
+follow in `core.aldp` (the device-side threefry chain).  When a network codec prices the wire and neither sparsify
 nor noise runs, the nonzero count is kernel K3 (`count_upload_nnz`).
 The unfused chain `sparsify_pallas_cohort` (K4) -> `count_upload_nnz`
 (K3) -> `aldp_pallas_cohort` (K5) is the comparator K1 is held against
@@ -26,6 +27,7 @@ import torch
 from .. import prng
 from .. import tree as tree_util
 from ..core import accumulator as accum
+from ..core import aldp
 from ..core.detection import nanpercentile
 from ..net.codecs import analytic_upload_bytes
 
@@ -75,7 +77,8 @@ def upload_pipeline(cfg, deltas, residuals_c, k2s: np.ndarray,
     With neither sparsify nor noise there is nothing to compute per
     element: the deltas pass through and ``need_nnz`` counts them with K3
     (`count_upload_nnz`).  The count is post-sparsify, pre-noise: the
-    sparse coordinate set the codecs price.  Returns (uploaded deltas,
+    sparse coordinate set the codecs price.  The reference backend with
+    noise takes `_upload_reference_noise`.  Returns (uploaded deltas,
     updated cohort residuals, nnz (C,) int32 or None)."""
     from ..kernels import upload_fused as uf
 
@@ -84,16 +87,16 @@ def upload_pipeline(cfg, deltas, residuals_c, k2s: np.ndarray,
     if not (do_sparsify or apply_ldp):
         nnz = count_upload_nnz(deltas) if need_nnz else None
         return deltas, residuals_c, nnz
+    if apply_ldp and cfg.backend == "reference":
+        return _upload_reference_noise(cfg, deltas, residuals_c, k2s,
+                                       need_nnz)
     layout = cohort_layout(deltas)
     flat_d = layout.flatten(deltas)
     thresholds = flat_r = comb = None
     if do_sparsify:
         flat_r = layout.flatten(residuals_c)
         comb = flat_d + flat_r
-        thresholds = torch.stack(
-            [accum.leaf_threshold(comb[:, off:off + size],
-                                  cfg.sparsify_ratio)
-             for off, size in zip(layout.offsets, layout.sizes)], dim=1)
+        thresholds = _leaf_thresholds(layout, comb, cfg.sparsify_ratio)
     seeds = scales = None
     if apply_ldp:
         if do_sparsify:
@@ -114,6 +117,40 @@ def upload_pipeline(cfg, deltas, residuals_c, k2s: np.ndarray,
     if do_sparsify:
         residuals_c = layout.unflatten(newr)
     return deltas, residuals_c, nnz
+
+
+def _leaf_thresholds(layout, comb: torch.Tensor, ratio: float
+                     ) -> torch.Tensor:
+    """(C, L) per-node per-leaf DGC cutoffs of the combined cohort."""
+    return torch.stack(
+        [accum.leaf_threshold(comb[:, off:off + size], ratio)
+         for off, size in zip(layout.offsets, layout.sizes)], dim=1)
+
+
+def _upload_reference_noise(cfg, deltas, residuals_c, k2s: np.ndarray,
+                            need_nnz: bool):
+    """The reference backend with σ > 0, as `repro.fleet.stages` runs it:
+    the DGC split (K1 with sparsify and nnz only), then the clip by the
+    per-leaf global norm and dense `jax.random.normal` noise on every
+    coordinate (`core.aldp.perturb_flat`) — the reference's documented
+    dense-noise artefact.  The nnz stays post-sparsify, pre-noise."""
+    from ..kernels import upload_fused as uf
+
+    layout = cohort_layout(deltas)
+    flat = layout.flatten(deltas)
+    if cfg.sparsify_ratio < 1.0:
+        flat_r = layout.flatten(residuals_c)
+        flat, newr, nnz = uf.upload_fused_fleet(
+            flat, flat_r, _leaf_thresholds(layout, flat + flat_r,
+                                           cfg.sparsify_ratio),
+            None, None, 0.0, cfg.clip_s, boundaries=layout.offsets,
+            need_nnz=need_nnz)
+        residuals_c = layout.unflatten(newr)
+    else:
+        nnz = count_upload_nnz(deltas) if need_nnz else None
+    up, _ = aldp.perturb_flat(flat, k2s, layout.sizes, cfg.sigma,
+                              cfg.clip_s)
+    return layout.unflatten(up), residuals_c, nnz
 
 
 def count_upload_nnz(deltas, backend: str = "reference") -> torch.Tensor:
@@ -157,6 +194,91 @@ def detect_masked(accs: torch.Tensor, valid: torch.Tensor, s: float
     mask = (accs > thr) & valid
     mask = torch.where(mask.any(), mask, (accs >= thr) & valid)
     return mask, thr
+
+
+# ---------------------------------------------------------------------------
+# stage: the adversary zoo's delta-level attacks (sybil boosting, the
+# adaptive attacker's throttle) and the DDoS flood count for `NetSim.draw`;
+# the data-level attacks live in the shards (`data.federated`)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttackPlan:
+    """Engine-side view of an `api.AttackMix` + the materialized malicious
+    ids: which rows are adversarial and how their uploads misbehave."""
+    kind: str                       # label_flip|sybil|backdoor|adaptive|ddos
+    malicious: np.ndarray           # (N,) bool host-side membership
+    sybil_boost: float = 3.0
+    adapt_poison_scale: float = 0.5
+    ddos_uploads: int = 4
+
+    @classmethod
+    def from_spec(cls, attack, n_nodes: int, malicious_ids) -> "AttackPlan":
+        mal = np.zeros(int(n_nodes), bool)
+        mal[np.asarray(list(malicious_ids), int)] = True
+        return cls(kind=attack.kind, malicious=mal,
+                   sybil_boost=float(attack.sybil_boost),
+                   adapt_poison_scale=float(attack.adapt_poison_scale),
+                   ddos_uploads=int(attack.ddos_uploads))
+
+    @property
+    def n_malicious(self) -> int:
+        return int(self.malicious.sum())
+
+    @property
+    def needs_throttle(self) -> bool:
+        """Does this attack carry device-side state (`FleetState.throttle`)?"""
+        return self.kind == "adaptive"
+
+    @property
+    def flood_uploads(self) -> int:
+        """Extra concurrent flows the DDoS attack adds to `NetSim.draw`'s
+        shared-uplink contention each round or window."""
+        return (self.n_malicious * self.ddos_uploads
+                if self.kind == "ddos" else 0)
+
+    def mask(self, device=None) -> torch.Tensor:
+        """(N,) bool device mask."""
+        return torch.as_tensor(self.malicious, device=device)
+
+
+def scale_node_rows(tree, scale: torch.Tensor):
+    """Multiply every leaf's node rows by the (C,) per-node scale."""
+    return tree_util.map(
+        lambda x: x * scale.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype),
+        tree)
+
+
+def make_delta_attack(plan):
+    """The delta-level attack stage, or None when the attack does not
+    touch uploads: stage(deltas, mal_c, throttle_c) with ``mal_c`` the
+    cohort's malicious mask and ``throttle_c`` the adaptive attacker's
+    per-node poison scale (ignored by sybil)."""
+    if plan is None or plan.kind not in ("sybil", "adaptive"):
+        return None
+    if plan.kind == "sybil":
+        boost = float(plan.sybil_boost)
+
+        def stage(deltas, mal_c, throttle_c=None):
+            one = torch.ones((), device=mal_c.device)
+            return scale_node_rows(deltas, torch.where(mal_c, boost * one,
+                                                       one))
+    else:
+        def stage(deltas, mal_c, throttle_c):
+            return scale_node_rows(deltas, torch.where(
+                mal_c, throttle_c, torch.ones_like(throttle_c)))
+    return stage
+
+
+def adaptive_throttle_update(throttle: torch.Tensor, rejected: torch.Tensor,
+                             seen: torch.Tensor, scale: float
+                             ) -> torch.Tensor:
+    """The detection-aware attacker's control law per participating node:
+    caught ⇒ × ``scale``; accepted ⇒ × 1.1, capped at 1.  Non-participants
+    keep their state."""
+    upd = torch.where(rejected, throttle * float(scale),
+                      torch.clamp(throttle * 1.1, max=1.0))
+    return torch.where(seen, upd, throttle)
 
 
 # ---------------------------------------------------------------------------

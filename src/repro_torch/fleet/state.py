@@ -42,6 +42,10 @@ class FleetState:
     trains from), next_arrival ((N,) f32 virtual clocks), dispatched_version
     ((N,) int32), version (global model version), acc_ring ((W,) f32 on the
     host, NaN = empty) and acc_count (total pushes).
+    The trust-scored defense and the adaptive attacker add (N,) f32 device
+    rows, None unless the spec needs them: trust (per-node trust in
+    [0, 1], `detection.trust_update`) and throttle (the detection-aware
+    attacker's per-node poison scale, `stages.adaptive_throttle_update`).
     """
     residuals: object
     chain_key: np.ndarray
@@ -52,28 +56,39 @@ class FleetState:
     version: Optional[int] = None
     acc_ring: Optional[torch.Tensor] = None
     acc_count: Optional[int] = None
+    trust: Optional[torch.Tensor] = None
+    throttle: Optional[torch.Tensor] = None
 
     @property
     def n_nodes(self) -> int:
         return tree_util.leaves(self.residuals)[0].shape[0]
 
 
-def init_fleet_state(template_params, n_nodes: int, key) -> FleetState:
-    """Zero residuals for every node + the engine's starting chain key."""
+def init_fleet_state(template_params, n_nodes: int, key, *,
+                     trust: bool = False,
+                     throttle: bool = False) -> FleetState:
+    """Zero residuals for every node + the engine's starting chain key;
+    ``trust``/``throttle`` allocate the optional (N,) rows at 1.0."""
     residuals = tree_util.map(
         lambda x: torch.zeros((n_nodes,) + tuple(x.shape),
                               dtype=torch.float32, device=x.device),
         template_params)
-    return FleetState(residuals=residuals, chain_key=np.asarray(key,
-                                                                np.uint32))
+    dev = tree_util.leaves(template_params)[0].device
+    ones = lambda on: (torch.ones(n_nodes, dtype=torch.float32,  # noqa: E731
+                                  device=dev) if on else None)
+    return FleetState(residuals=residuals,
+                      chain_key=np.asarray(key, np.uint32),
+                      trust=ones(trust), throttle=ones(throttle))
 
 
 def init_async_fleet_state(template_params, n_nodes: int, key,
                            first_arrival: np.ndarray,
-                           detect_window: int) -> FleetState:
+                           detect_window: int, *, trust: bool = False,
+                           throttle: bool = False) -> FleetState:
     """Every node starts with the global model (version 0) in flight,
     arriving when its first local compute finishes; empty ring."""
-    st = init_fleet_state(template_params, n_nodes, key)
+    st = init_fleet_state(template_params, n_nodes, key, trust=trust,
+                          throttle=throttle)
     dev = tree_util.leaves(template_params)[0].device
     return dataclasses.replace(
         st,

@@ -101,7 +101,9 @@ class NetSim:
              extra_concurrency: int = 0) -> UploadDraw:
         """Sample transfer times for one batch of concurrent uploads and
         advance each node's upload counter.  Concurrency for the shared-
-        uplink cap is the batch size plus ``extra_concurrency``."""
+        uplink cap is the batch size plus ``extra_concurrency``: flood
+        flows that contend for the uplink without being model uploads
+        (the DDoS attack's, `fleet.stages.AttackPlan.flood_uploads`)."""
         nodes = np.asarray(nodes, np.int64)
         u = nodes.size
         conc = u + max(0, int(extra_concurrency))

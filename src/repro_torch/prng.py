@@ -151,3 +151,105 @@ def batch_indices(k1s, local_steps: int, batch_size: int, sizes
     steps = split(k1s, local_steps)                        # (C, S, 2)
     sizes = np.asarray(sizes, np.int64)[:, None]           # (C, 1)
     return randint(steps, batch_size, 0, sizes).astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# device-side draws: `jax.random.bits`, `uniform` and `normal` (float32)
+# over tensors of counters, for the reference backend's ALDP noise
+# ---------------------------------------------------------------------------
+
+_M32_T = 0xFFFFFFFF
+
+
+def threefry2x32_tensor(k1, k2, x1, x2):
+    """`threefry2x32` on int64 tensors holding uint32 values (broadcast
+    together); returns the two output words, int64 masked to 32 bits."""
+    import torch
+
+    k1, k2, x1, x2 = torch.broadcast_tensors(k1, k2, x1, x2)
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _M32_T
+    b = (x2 + ks[1]) & _M32_T
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            a.add_(b).bitwise_and_(_M32_T)
+            b = (((b << r) & _M32_T) | (b >> (32 - r))).bitwise_xor_(a)
+        a.add_(ks[(i + 1) % 3]).bitwise_and_(_M32_T)
+        b.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_M32_T)
+    return a, b
+
+
+def bits_tensor(k1, k2, counters):
+    """32-bit `random_bits` (partitionable) at flat ``counters`` under the
+    keys (k1, k2): threefry(key, (hi, lo) of the counter), then b1 ^ b2.
+    All int64 tensors, broadcast together; returns int64 in [0, 2^32)."""
+    b1, b2 = threefry2x32_tensor(k1, k2, counters >> 32,
+                                 counters & _M32_T)
+    return b1.bitwise_xor_(b2)
+
+
+def uniform_from_bits(bits, minval: float = 0.0, maxval: float = 1.0):
+    """`jax.random.uniform` (float32) from its 32-bit draws: the top 23
+    bits as the mantissa of [1, 2), minus 1, then fma(f, hi − lo, lo) and
+    max(lo, ·), every constant in float32."""
+    import torch
+    from .core.numerics import fma_f32
+
+    f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+         - 1.0)
+    lo = np.float32(minval)
+    span = np.float32(np.float32(maxval) - lo)
+    return torch.clamp(fma_f32(f, span, lo), min=float(lo))
+
+
+def erf_inv_draws(bits):
+    """erf_inv of the uniform on [nextafter(−1, 0), 1) that `normal`
+    draws from its 32-bit draws (the normal before its √2)."""
+    from .core.numerics import erf_inv_f32
+
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    return erf_inv_f32(uniform_from_bits(bits, float(lo), 1.0))
+
+
+def normal_scale(scale: float = 1.0) -> np.float32:
+    """The constant the reference's compiled ``scale * normal(...)``
+    multiplies erf_inv by: XLA folds ``scale`` into √2, f32(√2 · scale)."""
+    return np.float32(np.float32(np.sqrt(2.0)) * np.float32(scale))
+
+
+def normal_from_bits(bits, scale: float = 1.0):
+    """`jax.random.normal` (float32) from its 32-bit draws, √2 · erf_inv(u)
+    as the reference's `_normal_real` computes it; with ``scale``, the
+    draws times scale as the reference's compiled programs compute
+    ``scale * normal(...)``."""
+    return erf_inv_draws(bits) * normal_scale(scale)
+
+
+def _key_words(key, device):
+    import torch
+
+    key = np.asarray(key, np.uint32)
+    return (torch.tensor(int(key[0]), dtype=torch.int64, device=device),
+            torch.tensor(int(key[1]), dtype=torch.int64, device=device))
+
+
+def random_bits(key, shape, device="cpu"):
+    """`jax.random.bits(key, shape)` (uint32 values) as an int64 tensor."""
+    import torch
+
+    n = int(np.prod(shape, dtype=np.int64))
+    k1, k2 = _key_words(key, device)
+    cnt = torch.arange(n, dtype=torch.int64, device=device)
+    return bits_tensor(k1, k2, cnt).reshape(tuple(shape))
+
+
+def uniform(key, shape, device="cpu", minval: float = 0.0,
+              maxval: float = 1.0):
+    """`jax.random.uniform(key, shape, float32, minval, maxval)`."""
+    return uniform_from_bits(random_bits(key, shape, device), minval,
+                             maxval)
+
+
+def normal(key, shape, device="cpu"):
+    """`jax.random.normal(key, shape, float32)`."""
+    return normal_from_bits(random_bits(key, shape, device))

@@ -93,20 +93,8 @@ def test_contradictory_specs_raise_the_same_spec_error(case):
 UNPORTED = [
     lambda m: m.ExperimentSpec(topology=m.Topology(kind="sequential")),
     lambda m: m.ExperimentSpec(topology=m.Topology(kind="mesh")),
-    lambda m: m.ExperimentSpec(schedule=m.SchedulePolicy(kind="buffered")),
-    lambda m: m.ExperimentSpec(defense=m.DefenseSpec(
-        detect=True, kind="trust_weighted")),
-    lambda m: m.ExperimentSpec(fleet=m.FleetSpec(attack=m.AttackMix(
-        malicious_frac=0.2, kind="sybil"))),
-    lambda m: m.ExperimentSpec(fleet=m.FleetSpec(attack=m.AttackMix(
-        malicious_frac=0.2, kind="adaptive"))),
-    lambda m: m.ExperimentSpec(
-        fleet=m.FleetSpec(attack=m.AttackMix(malicious_frac=0.2,
-                                             kind="ddos")),
-        network=m.NetworkSpec(codec="sparse_coo", shared_uplink_bps=1e6)),
     lambda m: m.ExperimentSpec(obs=m.ObsSpec(enabled=True)),
     lambda m: m.ExperimentSpec(sim=m.SimSpec()),
-    lambda m: m.ExperimentSpec(privacy=m.PrivacySpec(sigma=0.1)),
 ]
 
 
@@ -185,6 +173,100 @@ def test_small_runs_match_reference(kind, sigma, backend):
     assert rt.to_dict()["records"] == [dataclasses.asdict(r)
                                        for r in rt.records]
     assert tapi.RunReport.from_json(rt.to_json()).records == rt.records
+
+
+def _zoo(m, kind, backend="pallas", attack="label_flip", defense=None,
+         staleness=False, network=None):
+    return m.ExperimentSpec(
+        fleet=m.FleetSpec(n_nodes=8, model="cnn", hw=(14, 14),
+                          samples_per_node=40, n_test=128, n_cloud_test=64,
+                          attack=m.AttackMix(malicious_frac=0.25,
+                                             kind=attack)),
+        schedule=m.SchedulePolicy(kind=kind, staleness_adaptive=staleness),
+        privacy=m.PrivacySpec(sigma=0.05),
+        compression=m.CompressionSpec(sparsify_ratio=0.1),
+        defense=m.DefenseSpec(detect=True, kind=defense or "percentile"),
+        network=m.NetworkSpec(**(network or {})),
+        topology=m.Topology(backend=backend), rounds=2)
+
+
+ZOO = {
+    # ALDPFL and SLDPFL on the default backend: jax.random.normal noise
+    "async-reference-noise": lambda m: _zoo(m, "async", "reference"),
+    "sync-reference-noise": lambda m: _zoo(m, "sync", "reference"),
+    "buffered-staleness": lambda m: _zoo(m, "buffered", staleness=True),
+    "async-trust-sybil": lambda m: _zoo(m, "async", attack="sybil",
+                                        defense="trust_weighted"),
+    "sync-trust-adaptive": lambda m: _zoo(m, "sync", attack="adaptive",
+                                          defense="trust_weighted"),
+    "async-ddos-shared-uplink": lambda m: _zoo(
+        m, "async", attack="ddos", network=dict(
+            codec="sparse_coo", latency_s=0.02, shared_uplink_bps=25e6)),
+}
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the port's side of a run: these runs are
+    small, and many threads per worker only contend with the suite's
+    other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("case", sorted(ZOO))
+def test_small_zoo_runs_match_reference(case, one_thread):
+    """The reference backend's noise, the buffered fold, the trust
+    defense and the sybil, adaptive and ddos attacks, held as
+    `test_small_runs_match_reference` holds the others (plus
+    `RunReport.net` where a codec runs)."""
+    ref_spec = ZOO[case](japi)
+    pj = japi.materialize(ref_spec)
+    rj = japi.run(japi.compile_plan(ref_spec), population=pj)
+    loss_fn, acc_fn = tapi.model_fns("cnn")
+    pt = tapi.Population(
+        params=convert.to_torch(pj.params), loss_fn=loss_fn, acc_fn=acc_fn,
+        node_data=pj.node_data, test_data=pj.test_data,
+        cloud_test=pj.cloud_test, profile=pj.profile,
+        malicious_ids=pj.malicious_ids)
+    port_spec = tapi.ExperimentSpec.from_json(ref_spec.to_json())
+    assert port_spec == ZOO[case](tapi)
+    rt = tapi.run(tapi.compile_plan(port_spec), population=pt, device="cpu")
+    assert len(rj.records) == len(rt.records) >= 2
+    for a, b in zip(rj.records, rt.records):
+        assert (a.t, a.version, a.comm_bytes, a.comm_time, a.n_rejected,
+                a.bytes_source) == (b.t, b.version, b.comm_bytes,
+                                    b.comm_time, b.n_rejected,
+                                    b.bytes_source)
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / 128
+    assert rj.detections == rt.detections
+    assert rj.epsilon_spent == rt.epsilon_spent > 0
+    assert rt.kappa == pytest.approx(rj.kappa, rel=1e-12)
+    assert rt.net == rj.net
+    if rt.net is not None:
+        assert sum(r.comm_bytes for r in rt.records) == \
+            rt.net["encoded_bytes"]
+    for a, b in zip(jax.tree.leaves(rj.final_params),
+                    tree.leaves(rt.final_params)):
+        np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["aldpfl", "sldpfl"])
+def test_benchmark_specs_run_on_the_port(mode, one_thread):
+    """`benchmarks.common.spec_for_mode` builds the paper's private modes
+    at sigma 0.05 on the default (reference) backend; the port compiles
+    and runs them (one round)."""
+    from benchmarks.common import spec_for_mode
+
+    spec = tapi.ExperimentSpec.from_json(spec_for_mode(mode,
+                                                       rounds=1).to_json())
+    assert spec.topology.backend == "reference" and spec.privacy.sigma > 0
+    report = tapi.run(tapi.compile_plan(spec), device="cpu")
+    assert len(report.records) == 1 and report.epsilon_spent > 0
+    assert 0.0 <= report.final_accuracy <= 1.0
 
 
 LOSSY_INDUSTRIAL = dict(codec="sparse_bitpack", bandwidth_sigma=1.0,

@@ -21,7 +21,9 @@ in other orders than the plain versions and use CUDA's expf; readings
 under 1e-6 of it), plus one bf16 ulp of the larger value for a bfloat16
 y; a small model forward with K6 on the card within 1e-4 of the CPU, as
 the CPU parity tests hold the port to the reference, and the two-layer
-falcon-mamba and zamba2 likewise.
+falcon-mamba and zamba2 likewise; the reference backend's noise chain
+(threefry -> uniform -> erf_inv) bitwise against the CPU, and the small
+buffered, trust and reference-noise runs as the network run.
 """
 import numpy as np
 import pytest
@@ -520,6 +522,72 @@ def test_small_network_run_on_the_card_matches_the_cpu(cuda):
                 a.bytes_source) == (b.t, b.version, b.comm_bytes,
                                     b.comm_time, b.n_rejected,
                                     b.bytes_source)
+        assert abs(a.accuracy - b.accuracy) <= 1.0 / 128
+    for x, y in zip(tree.leaves(r_cpu.final_params),
+                    tree.leaves(r_gpu.final_params)):
+        assert float((x - y.cpu()).abs().max()) <= 1e-4
+
+
+def test_reference_noise_chain_on_the_card_matches_the_cpu(cuda):
+    """The reference backend's noise (threefry bits -> uniform -> XLA's
+    float32 erf_inv, `core.aldp.leaf_bits` over the CNN's six leaves) on
+    the card and on the CPU: bits, uniforms and normals bitwise (the chain
+    is integer and correctly rounded float arithmetic on both)."""
+    from repro_torch import prng
+    from repro_torch.core import aldp
+
+    sizes = (16, 144, 32, 4608, 10, 15680)
+    keys = prng.split(prng.PRNGKey(11), 24)
+    bits = {d: aldp.leaf_bits(keys, sizes, d) for d in ("cpu", cuda)}
+    assert torch.equal(bits["cpu"], bits[cuda].cpu())
+    lo = float(np.nextafter(np.float32(-1), np.float32(0)))
+    for fn in (lambda b: prng.uniform_from_bits(b),
+               lambda b: prng.uniform_from_bits(b, lo, 1.0),
+               lambda b: prng.normal_from_bits(b, 0.05)):
+        want, got = fn(bits["cpu"]), fn(bits[cuda]).cpu()
+        assert torch.equal(want.view(torch.int32), got.view(torch.int32))
+    flat = torch.randn(24, sum(sizes), generator=torch.Generator()
+                       .manual_seed(0))
+    want, _ = aldp.perturb_flat(flat, keys, sizes, 0.05, 1.0)
+    got, _ = aldp.perturb_flat(flat.to(cuda), keys, sizes, 0.05, 1.0)
+    assert float((want - got.cpu()).abs().max()) <= 2e-6
+
+
+@pytest.mark.parametrize("case", ["buffered", "trust-sybil",
+                                  "sync-trust-adaptive", "reference-noise"])
+def test_small_zoo_runs_on_the_card_match_the_cpu(cuda, case):
+    """The reference-noise, buffered and trust paths, small, on the card
+    and on the CPU: equal records, params within 1e-4; K1 launches on
+    each, and K2 on the sequential folds but not on the buffered one."""
+    kind = {"buffered": "buffered", "sync-trust-adaptive": "sync"}.get(
+        case, "async")
+    attack = {"trust-sybil": "sybil", "sync-trust-adaptive": "adaptive"}
+    spec = api.ExperimentSpec(
+        fleet=api.FleetSpec(n_nodes=8, model="cnn", hw=(14, 14),
+                            samples_per_node=40, n_test=128, n_cloud_test=64,
+                            attack=api.AttackMix(
+                                malicious_frac=0.25,
+                                kind=attack.get(case, "label_flip"))),
+        schedule=api.SchedulePolicy(kind=kind,
+                                    staleness_adaptive=kind == "buffered"),
+        privacy=api.PrivacySpec(sigma=0.05),
+        compression=api.CompressionSpec(sparsify_ratio=0.1),
+        defense=api.DefenseSpec(detect=True, kind=(
+            "trust_weighted" if "trust" in case else "percentile")),
+        topology=api.Topology(backend=("reference" if case ==
+                                       "reference-noise" else "pallas")),
+        rounds=2)
+    plan = api.compile_plan(spec)
+    pop = api.materialize(spec, device="cpu")
+    k1, k2 = uf.upload_fused_fleet.launches, wf.window_fold_fleet.launches
+    r_gpu = api.run(plan, population=pop, device="cuda")
+    assert uf.upload_fused_fleet.launches > k1
+    assert (wf.window_fold_fleet.launches > k2) == (kind == "async")
+    r_cpu = api.run(plan, population=pop, device="cpu")
+    assert len(r_cpu.records) == len(r_gpu.records) >= 2
+    for a, b in zip(r_cpu.records, r_gpu.records):
+        assert (a.t, a.version, a.comm_bytes, a.n_rejected) == \
+            (b.t, b.version, b.comm_bytes, b.n_rejected)
         assert abs(a.accuracy - b.accuracy) <= 1.0 / 128
     for x, y in zip(tree.leaves(r_cpu.final_params),
                     tree.leaves(r_gpu.final_params)):
