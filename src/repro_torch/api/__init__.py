@@ -20,7 +20,9 @@ from .plan import (BACKENDS, NET_CODECS, SCHEDULE_KINDS,  # noqa: F401
                    TOPOLOGY_KINDS, ExperimentPlan, SpecError, compile_plan)
 from .population import (Population, default_sampler,  # noqa: F401
                          materialize, model_fns)
-from .report import RoundRecord, RunReport, detection_log  # noqa: F401
+from .report import (RoundRecord, RunReport,  # noqa: F401
+                     append_json_records, detection_log, load_json_records,
+                     replay_records)
 from .run import (RunState, execute, init_state, make_engine,  # noqa: F401
                   make_stepper, run)
 from .spec import (ACCEPTED_SCHEMA_VERSIONS, SCHEMA_VERSION,  # noqa: F401

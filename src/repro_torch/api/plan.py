@@ -508,7 +508,3 @@ def require_ported(spec: ExperimentSpec) -> None:
                 "JAX package only")
     if topo.kind == "mesh":
         missing("topology.kind='mesh'", "'Multi-device: torch.distributed'")
-    if spec.obs.enabled:
-        missing("obs.enabled", "'Observability'")
-    if spec.sim is not None:
-        missing("the sim axis", "'Simulation service and checkpoints'")

@@ -1,6 +1,7 @@
 """Structured, JSON-round-trippable run results.
 
-Port of `repro.api.report` (`RoundRecord`, `RunReport`, `detection_log`):
+Port of `repro.api.report` (`RoundRecord`, `RunReport`, `detection_log`,
+the ``results/*.json`` trajectory writer and the streamed-record replay):
 the same record stream and the same JSON, so one spec's reports from the
 two packages compare field by field.
 """
@@ -12,6 +13,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from ..core.async_update import communication_efficiency
+from ..obs import read_jsonl
 from .spec import ACCEPTED_SCHEMA_VERSIONS, SCHEMA_VERSION
 
 
@@ -116,3 +119,74 @@ def detection_log(records: List[RoundRecord]) -> List[Dict]:
     """The rounds where the cloud rejected updates (Alg. 2 firing)."""
     return [{"round": i, "t": r.t, "n_rejected": r.n_rejected}
             for i, r in enumerate(records) if r.n_rejected]
+
+
+def append_json_records(path: str, records: List[Dict]) -> None:
+    """Append schema-stamped result records to a JSON trajectory file —
+    the one write path for ``results/*.json`` (benchmarks route through
+    this instead of hand-rolling their own schemas)."""
+    if not records:
+        return
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    traj = []
+    if os.path.exists(path):
+        with open(path) as f:
+            traj = json.load(f)
+        if not isinstance(traj, list):
+            raise ValueError(
+                f"append_json_records: {path} holds a JSON "
+                f"{type(traj).__name__}, not a trajectory list — single "
+                f"RunReports written by RunReport.save live in their own "
+                f"files")
+    for rec in records:
+        stamped = dict(rec)
+        stamped.setdefault("schema_version", SCHEMA_VERSION)
+        traj.append(stamped)
+    # write-then-rename: a crash mid-dump must never replace a valid
+    # trajectory with a torn one (the old file survives intact)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(traj, f, indent=1)
+    os.replace(tmp, path)
+
+
+def load_json_records(path: str) -> List[Dict]:
+    """Read an `append_json_records` trajectory back, validating shape."""
+    with open(path) as f:
+        traj = json.load(f)
+    if not isinstance(traj, list):
+        raise ValueError(f"load_json_records: {path} holds a JSON "
+                         f"{type(traj).__name__}, not a trajectory list")
+    return traj
+
+
+# ---------------------------------------------------------------------------
+# streamed-record replay (the ObsSpec.records_jsonl stream)
+# ---------------------------------------------------------------------------
+
+def replay_records(path: str, strict: bool = True) -> RunReport:
+    """Rebuild a `RunReport` from an ``obs.records_jsonl`` stream.
+
+    The stream is header / one line per `RoundRecord` / a final ``report``
+    footer.  Derived quantities (κ, final accuracy, the detection log) are
+    recomputed from the replayed records — for a complete stream the
+    result equals the in-memory report exactly; for a crashed stream
+    (``strict=False`` drops a torn tail, the footer may be missing) it is
+    the faithful report of every round that completed.
+    """
+    rows = read_jsonl(path, strict=strict)
+    header = rows[0] if rows and rows[0].get("kind") == "header" else {}
+    records = [RoundRecord(**{k: v for k, v in r.items() if k != "kind"})
+               for r in rows if r.get("kind") == "record"]
+    footer = next((r for r in reversed(rows)
+                   if r.get("kind") == "report"), None)
+    meta = dict(footer) if footer is not None else dict(header)
+    comm = sum(r.comm_time for r in records)
+    comp = sum(r.comp_time for r in records)
+    return RunReport(
+        mode=meta["mode"], engine=meta["engine"], records=records,
+        kappa=communication_efficiency(comm, comp),
+        epsilon_spent=meta.get("epsilon_spent", 0.0),
+        final_accuracy=records[-1].accuracy if records else 0.0,
+        detections=detection_log(records),
+        spec=meta.get("spec"), net=meta.get("net"))

@@ -29,6 +29,14 @@ processed node redispatched with the post-window model.  An
 `stages.AttackPlan` scales the sybil and adaptive uploads and floods the
 link draws; the trust-weighted defense scales each arrival's mixing
 coefficient by its trust weight in the control scan.
+
+With a tracer enabled each window emits a ``window`` span, an
+``arrival`` instant per processed upload, a ``detect.verdict`` instant
+per cloud evaluation (the Alg. 2 audit: the ring threshold and
+occupancy each arrival was judged against, which the host fold control
+returns when traced) and the window metrics; with ``stage_timings`` its
+stages are timed, each fenced on the card.  Tracing changes no
+arithmetic of the fold.
 """
 from __future__ import annotations
 
@@ -43,8 +51,11 @@ from .. import prng
 from .. import tree as tree_util
 from ..core import async_update, detection
 from ..device import resolve
+from ..obs import (STALENESS_EDGES, WINDOW_SIZE_EDGES, get_tracer,
+                   timed_stage)
 from . import stages
 from .engine import ClientSampler, FleetConfig, NodeProfile
+from .mesh import MeshStateIO
 from .state import gather_nodes, init_async_fleet_state
 
 
@@ -85,18 +96,31 @@ class FoldControl:
     gates: np.ndarray       # (C,) mix this arrival?
     a: np.ndarray           # (C,) f32 coefficient on params
     b: np.ndarray           # (C,) f32 coefficient on omega
+    # the detection audit of a traced run (None otherwise): the cohort's
+    # accuracies and, for each arrived slot, the ring threshold and
+    # occupancy its verdict was judged against
+    audit: Optional[dict] = None
+
+
+def _new_audit(accs: torch.Tensor) -> dict:
+    c = accs.shape[0]
+    return {"accs": accs.numpy(), "thr": np.full(c, np.nan, np.float32),
+            "held": np.zeros(c, np.int32)}
 
 
 def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
                  count: int, accs: torch.Tensor, vdisp_c: np.ndarray,
-                 arrived: np.ndarray, trust_c=None) -> FoldControl:
+                 arrived: np.ndarray, trust_c=None,
+                 need_audit: bool = False) -> FoldControl:
     """The fold's scalar bookkeeping, in arrival order on the host: ring
     pushes, Alg. 2 verdicts, staleness and versions.  With ``trust_c``
     (the cohort's trust rows) each arrival's omega coefficient b is
     scaled by its `detection.trust_weights` weight against the mean of
     the occupied ring slots (its own accuracy pushed), and a = 1 − b.
     Neither rejection nor a coefficient depends on params, so splitting
-    them from the param fold is exact."""
+    them from the param fold is exact.  Each arrived slot is judged as
+    `detection.ring_detect` judges it; with ``need_audit`` its threshold
+    and occupancy go into ``audit``."""
     accs = accs.detach().to("cpu", torch.float32)
     if trust_c is not None:
         trust_c = trust_c.detach().to("cpu", torch.float32)
@@ -108,13 +132,19 @@ def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
     a = np.full(c, np.float32(cfg.alpha), np.float32)
     b = np.full(c, np.float32(1.0 - cfg.alpha), np.float32)
     width = ring.shape[0]
+    audit = _new_audit(accs) if need_audit else None
     for i in range(c):
         if arrived[i]:
             ring, count = detection.ring_push(ring, count, accs[i])
-            if cfg.detect:
-                rej[i] = detection.ring_detect(ring, count, accs[i],
-                                               cfg.detect_s,
-                                               cfg.detect_warmup)
+            if cfg.detect or audit is not None:
+                thr = detection.ring_threshold(ring, count, cfg.detect_s)
+                held = min(count, width)
+                if cfg.detect:
+                    rej[i] = (held >= cfg.detect_warmup
+                              and bool(accs[i] <= thr))
+                if audit is not None:
+                    audit["thr"][i] = float(thr)
+                    audit["held"][i] = held
         taus[i] = version - int(vdisp_c[i])
         if cfg.staleness_adaptive or trust_c is not None:
             w_new = (async_update.staleness_alpha(cfg.alpha, int(taus[i]),
@@ -133,18 +163,20 @@ def control_scan(cfg: AsyncFleetConfig, version: int, ring: torch.Tensor,
         gates[i] = bool(arrived[i]) and not rej[i]
         version += int(gates[i])
         v_seq[i] = version
-    return FoldControl(version, ring, count, v_seq, rej, taus, gates, a, b)
+    return FoldControl(version, ring, count, v_seq, rej, taus, gates, a, b,
+                       audit)
 
 
 def sequential_fold(cfg: AsyncFleetConfig, params, version, ring, count,
-                    omegas, accs, vdisp_c, arrived, trust_c=None):
+                    omegas, accs, vdisp_c, arrived, trust_c=None,
+                    need_audit: bool = False):
     """Eq. (6)/mix_stale over arrival order with streaming detection (and
     trust-scaled coefficients with ``trust_c``), the params through K2.
     Returns (params, control, per-arrival snapshots tree)."""
     from ..kernels.window_fold import window_fold_fleet
 
     ctl = control_scan(cfg, version, ring, count, accs, vdisp_c, arrived,
-                       trust_c)
+                       trust_c, need_audit)
     layout = stages.cohort_layout(omegas)
     dev = tree_util.leaves(params)[0].device
     final, seq = window_fold_fleet(
@@ -156,22 +188,30 @@ def sequential_fold(cfg: AsyncFleetConfig, params, version, ring, count,
 
 
 def buffered_fold(cfg: AsyncFleetConfig, params, version, ring, count,
-                  omegas, accs, vdisp_c, arrived, trust_c=None):
+                  omegas, accs, vdisp_c, arrived, trust_c=None,
+                  need_audit: bool = False):
     """FedBuff: one ring push per arrival, one threshold for the whole
     buffer (rejected: held >= warmup and A <= Thr), staleness at mix time,
     then the plain, staleness-weighted ((τ+1)^−a) or trust-weighted
     masked mean mixed once by Eq. (6).  Returns (params, control, None):
-    every processed node receives the post-window model and version."""
+    every processed node receives the post-window model and version.
+    With ``need_audit`` every arrived slot is audited against the one
+    threshold and occupancy."""
     accs_h = accs.detach().to("cpu", torch.float32)
     c = accs_h.shape[0]
     for i in range(c):
         if arrived[i]:
             ring, count = detection.ring_push(ring, count, accs_h[i])
     rej = np.zeros(c, bool)
-    if cfg.detect:
+    audit = _new_audit(accs_h) if need_audit else None
+    if cfg.detect or audit is not None:
         thr = detection.ring_threshold(ring, count, cfg.detect_s)
-        if min(count, ring.shape[0]) >= cfg.detect_warmup:
+        held = min(count, ring.shape[0])
+        if cfg.detect and held >= cfg.detect_warmup:
             rej = arrived & (accs_h <= thr).numpy()
+        if audit is not None:
+            audit["thr"][arrived] = float(thr)
+            audit["held"][arrived] = held
     mask_h = arrived & ~rej
     taus = (version - np.asarray(vdisp_c, np.int64)).astype(np.int32)
     dev = accs.device
@@ -189,24 +229,30 @@ def buffered_fold(cfg: AsyncFleetConfig, params, version, ring, count,
         params = async_update.mix(params, omega_mean, cfg.alpha)
         version += 1
     ctl = FoldControl(version, ring, count, np.full(c, version, np.int32),
-                      rej, taus, mask_h, None, None)
+                      rej, taus, mask_h, None, None, audit)
     return params, ctl, None
 
 
-class AsyncFleetEngine:
+class AsyncFleetEngine(MeshStateIO):
     """Event-driven async FEL over a stacked node fleet, one window per
     step, on one device (``device="cuda"`` by default).  ``sampler``
     models churn: an unavailable node loses its in-window upload (no mix,
     no detection entry) but is redispatched.  ``net`` is an optional
-    `net.NetSim`, ``attack`` an optional `stages.AttackPlan`."""
+    `net.NetSim`, ``tracer`` an `obs.Tracer` (defaults to the
+    process-global one at construction), ``attack`` an optional
+    `stages.AttackPlan`."""
 
     def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
                  node_data, test_data, cloud_test, cfg: AsyncFleetConfig,
                  profile: Optional[NodeProfile] = None,
                  sampler: Optional[ClientSampler] = None, net=None,
-                 device=None, attack=None):
+                 device=None, tracer=None, attack=None):
         self.device = resolve(device)
         self.cfg = cfg
+        # the tracer is bound at construction: whether the fold control
+        # returns the detection audit is decided here
+        self.obs = tracer if tracer is not None else get_tracer()
+        self._need_audit = self.obs.enabled
         self.net = net
         self.attack = attack
         self.params = tree_util.map(lambda x: x.to(self.device), init_params)
@@ -237,12 +283,6 @@ class AsyncFleetEngine:
         self.history: List[AsyncWindowRecord] = []
         self._window_fn = self._build_window()
 
-    def load_state(self, residuals_stacked, chain_key) -> None:
-        self.state.residuals = tree_util.map(
-            lambda x: x.to(self.device, torch.float32).clone(),
-            residuals_stacked)
-        self.state.chain_key = np.asarray(chain_key, np.uint32)
-
     # -- one arrival window ---------------------------------------------------
     def _build_window(self):
         cfg = self.cfg
@@ -260,6 +300,7 @@ class AsyncFleetEngine:
         mal_full = (self.attack.mask(dev) if attack_stage is not None
                     else None)
         adapt_scale = self.attack.adapt_poison_scale if self.attack else 1.0
+        need_audit = self._need_audit
 
         def window_fn(params, state, order, proc, avail, up_s):
             """order: node ids sorted by (arrival, id), truncated to the
@@ -299,7 +340,7 @@ class AsyncFleetEngine:
                        if state.trust is not None else None)
             params, ctl, p_seq = fold(
                 cfg, params, state.version, state.acc_ring, state.acc_count,
-                omegas, accs, vdisp_c, arrived, trust_c)
+                omegas, accs, vdisp_c, arrived, trust_c, need_audit)
 
             # redispatch the processed slots (in place): the model right
             # after their own arrival (buffered: the post-window model),
@@ -343,6 +384,9 @@ class AsyncFleetEngine:
                 "max_staleness": int(np.where(arrived, ctl.taus, 0).max())}
             if need_nnz:
                 metrics["nnz"] = nnz.numpy()
+            if ctl.audit is not None:
+                metrics["audit"] = dict(ctl.audit, rej=ctl.rej,
+                                        taus=ctl.taus)
             return params, new_state, metrics
 
         return window_fn
@@ -367,8 +411,12 @@ class AsyncFleetEngine:
                    evaluate: bool = True) -> AsyncWindowRecord:
         """Process one arrival window (``evaluate=False`` records NaN
         instead of the global test accuracy)."""
+        tr = self.obs
         w = self._window_idx
-        order, proc = self.select_window(max_arrivals)
+        span = tr.span("window", window=w)
+        span.__enter__()
+        with timed_stage(tr, "window.select", window=w):
+            order, proc = self.select_window(max_arrivals)
         t_arr = self.state.next_arrival.cpu().numpy().astype(
             np.float64)[order]
         if self.sampler is not None:
@@ -384,34 +432,88 @@ class AsyncFleetEngine:
             # one link draw per in-window upload, in arrival order; the
             # other slots never scatter a clock
             flood = self.attack.flood_uploads if self.attack else 0
-            draw = self.net.draw(sel, extra_concurrency=flood)
+            with timed_stage(tr, "net.draw", window=w):
+                draw = self.net.draw(sel, extra_concurrency=flood)
             up_host = np.zeros(order.size, np.float64)
             up_host[proc] = draw.transfer_s
         else:
             up_host = self._comm_s[order]
-        self.params, self.state, m = self._window_fn(
-            self.params, self.state, order, proc, avail,
-            up_host.astype(np.float32))
+        with timed_stage(tr, "window.device", window=w) as stage:
+            self.params, self.state, m = self._window_fn(
+                self.params, self.state, order, proc, avail,
+                up_host.astype(np.float32))
+            stage.fence((self.params, self.state.next_arrival))
         self._window_idx = w + 1
         if self.net is not None:
-            enc = self.net.commit(draw, m["nnz"][proc])
+            with timed_stage(tr, "net.commit", window=w):
+                enc = self.net.commit(draw, m["nnz"][proc],
+                                      ctx={"window": w})
             uplink = draw.transfer_s
             comm_bytes = float(enc.sum())
         else:
             uplink = self._comm_s[sel]
             comm_bytes = float(self._bpn * sel.size)
         t_arrive = t_arr[proc] + uplink
+        if evaluate:
+            with timed_stage(tr, "window.evaluate", window=w):
+                accuracy = self.global_accuracy()
+        else:
+            accuracy = float("nan")
         rec = AsyncWindowRecord(
             t=float(t_arrive.max()) if sel.size else 0.0,
             window=w, version=int(self.state.version),
-            accuracy=self.global_accuracy() if evaluate else float("nan"),
+            accuracy=accuracy,
             comm_bytes=comm_bytes,
             comp_time=float(self._comp_s[sel].sum()),
             comm_time=float(uplink.sum()),
             n_processed=int(sel.size), n_rejected=m["n_rejected"],
             max_staleness=m["max_staleness"])
         self.history.append(rec)
+        if tr.enabled:
+            self._emit_window_events(rec, sel, proc, avail, t_arrive, m)
+        span.set(n_processed=rec.n_processed, n_rejected=rec.n_rejected,
+                 version=rec.version)
+        span.set_virtual(float(t_arr[0]) if t_arr.size else 0.0, rec.t)
+        span.__exit__(None, None, None)
         return rec
+
+    def _emit_window_events(self, rec: AsyncWindowRecord, sel, proc, avail,
+                            t_arrive, m) -> None:
+        """One window's trace: arrival instants (every processed upload),
+        a `detect.verdict` instant per cloud evaluation (the Alg. 2 audit
+        log — accuracy, ring threshold/occupancy, verdict, staleness), and
+        the aggregated window metrics.  Every array is already on the
+        host."""
+        tr = self.obs
+        arrived = avail[proc]
+        aud = m.get("audit")
+        if aud is not None:
+            accs = aud["accs"][proc]
+            rej = aud["rej"][proc]
+            taus = aud["taus"][proc]
+            thr = aud["thr"][proc]
+            held = aud["held"][proc]
+        for i in range(sel.size):
+            t_i = float(t_arrive[i])
+            node = int(sel[i])
+            tr.instant("arrival", virt_t=t_i, node=node, window=rec.window,
+                       arrived=bool(arrived[i]))
+            if aud is not None and arrived[i]:
+                tr.instant(
+                    "detect.verdict", virt_t=t_i, node=node,
+                    window=rec.window, accuracy=float(accs[i]),
+                    threshold=float(thr[i]), ring_held=int(held[i]),
+                    rejected=bool(rej[i]), tau=int(taus[i]),
+                    detect=bool(self.cfg.detect))
+        mx = tr.metrics
+        mx.histogram("window.size", WINDOW_SIZE_EDGES).observe(
+            rec.n_processed)
+        mx.histogram("window.max_staleness", STALENESS_EDGES).observe(
+            rec.max_staleness)
+        mx.counter("window.arrivals").inc(rec.n_processed)
+        mx.counter("window.rejected").inc(rec.n_rejected)
+        mx.counter("window.comm_bytes").inc(rec.comm_bytes)
+        mx.gauge("model.version").set(rec.version)
 
     def run(self, windows: int) -> List[AsyncWindowRecord]:
         for _ in range(windows):
@@ -420,9 +522,6 @@ class AsyncFleetEngine:
 
     def global_accuracy(self) -> float:
         return float(self.acc_fn(self.params, *self.test_data))
-
-    def export_residuals(self):
-        return self.state.residuals
 
     def kappa(self) -> float:
         """Eq. (5) over the whole run (per-arrival totals)."""

@@ -14,7 +14,10 @@ each round's measured nonzero counts are priced through the wire codec
 and the link model's transfer times replace the analytic uplink.  An
 `stages.AttackPlan` scales the sybil and adaptive attackers' uploads and
 adds the DDoS flood to the link draws; the trust-weighted defense
-aggregates with `detection.trust_weights`.
+aggregates with `detection.trust_weights`.  With a tracer enabled each
+round emits a ``round`` span, one ``detect.verdict`` instant per
+participant and the round metrics; with ``stage_timings`` its stages are
+timed, each fenced on the card.
 """
 from __future__ import annotations
 
@@ -28,7 +31,9 @@ from .. import prng
 from .. import tree as tree_util
 from ..core import async_update, detection
 from ..device import resolve
+from ..obs import WINDOW_SIZE_EDGES, get_tracer, timed_stage
 from . import stages
+from .mesh import MeshStateIO
 from .state import FleetState, broadcast_tree, gather_nodes, init_fleet_state
 
 
@@ -177,7 +182,7 @@ class FleetRoundRecord:
 # engine
 # ---------------------------------------------------------------------------
 
-class FleetEngine:
+class FleetEngine(MeshStateIO):
     """Cohort-batched synchronous FEL over a stacked node fleet, on one
     device (``device="cuda"`` by default; raises without a card unless
     ``device="cpu"``).
@@ -185,16 +190,22 @@ class FleetEngine:
     Args: init_params (dict of tensors), loss_fn (params, batch) -> (loss,
     aux), acc_fn (params, x, y) -> accuracy, node_data (list of numpy
     (x, y) shards or a `FleetData`), test_data, cloud_test, cfg, profile,
-    sampler, net (an optional `net.NetSim`), attack (an optional
-    `stages.AttackPlan`) — as in the reference."""
+    sampler, net (an optional `net.NetSim`), tracer (an `obs.Tracer`;
+    defaults to the process-global one at construction), attack (an
+    optional `stages.AttackPlan`) — as in the reference."""
 
     def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
                  node_data, test_data, cloud_test, cfg: FleetConfig,
                  profile: Optional[NodeProfile] = None,
                  sampler: Optional[ClientSampler] = None, net=None,
-                 device=None, attack=None):
+                 device=None, tracer=None, attack=None):
         self.device = resolve(device)
         self.cfg = cfg
+        # events and metrics go to the injected tracer, else whatever
+        # global one `api.run` scoped in (disabled -> all no-ops); the
+        # round already returns accs/mask/thr, so tracing reads them and
+        # changes nothing the round computes
+        self.obs = tracer if tracer is not None else get_tracer()
         self.net = net
         self.attack = attack
         self.params = tree_util.map(lambda x: x.to(self.device), init_params)
@@ -210,15 +221,11 @@ class FleetEngine:
             trust=cfg.trust_on,
             throttle=attack is not None and attack.needs_throttle)
         self.history: List[FleetRoundRecord] = []
+        # barrier-clock origin: run_round continues from the last record's
+        # t, or from here when the history is empty (a checkpoint restore
+        # sets it, so the resumed clock does not restart at zero)
         self._t0 = 0.0
         self._round_fn = self._build_round()
-
-    def load_state(self, residuals_stacked, chain_key) -> None:
-        """Adopt externally-held stacked residuals and a chain key."""
-        self.state.residuals = tree_util.map(
-            lambda x: x.to(self.device, torch.float32).clone(),
-            residuals_stacked)
-        self.state.chain_key = np.asarray(chain_key, np.uint32)
 
     def bytes_per_node(self) -> float:
         return stages.bytes_per_node(self.n_params, self.cfg.sparsify_ratio)
@@ -300,18 +307,24 @@ class FleetEngine:
         return round_fn
 
     def run_round(self) -> FleetRoundRecord:
+        tr = self.obs
         r = self.state.round
+        span = tr.span("round", round=r)
+        span.__enter__()
         idx, valid = self.sampler.cohort(r, self.n_nodes)
         idx, valid = np.asarray(idx), np.asarray(valid, bool)
         st = self.state
-        self.params, residuals, chain_key, m = self._round_fn(
-            self.params, st.residuals, st.chain_key, idx, valid, st.trust,
-            st.throttle)
+        with timed_stage(tr, "round.device", round=r) as stage:
+            self.params, residuals, chain_key, m = self._round_fn(
+                self.params, st.residuals, st.chain_key, idx, valid,
+                st.trust, st.throttle)
+            stage.fence((self.params, m))
         self.state = FleetState(residuals=residuals, chain_key=chain_key,
                                 round=r + 1, trust=st.trust,
                                 throttle=st.throttle)
         n_part = int(valid.sum())
-        n_rejected = int((valid & ~m["mask"].cpu().numpy()).sum())
+        mask = m["mask"].cpu().numpy()
+        n_rejected = int((valid & ~mask).sum())
         bpn = self.bytes_per_node()
         comp, comm = self.profile.round_times(idx, valid, bpn)
         comm_bytes = bpn * n_part
@@ -322,18 +335,56 @@ class FleetEngine:
             # on the slowest upload
             sel_nodes = idx[valid]
             flood = self.attack.flood_uploads if self.attack else 0
-            draw = self.net.draw(sel_nodes, extra_concurrency=flood)
-            enc = self.net.commit(draw, m["nnz"].numpy()[valid])
+            with timed_stage(tr, "net.draw", round=r):
+                draw = self.net.draw(sel_nodes, extra_concurrency=flood)
+            with timed_stage(tr, "net.commit", round=r):
+                enc = self.net.commit(draw, m["nnz"].numpy()[valid],
+                                      ctx={"round": r})
             comm = float(draw.transfer_s.max()) if sel_nodes.size else 0.0
             comm_bytes = float(enc.sum())
         t_prev = self.history[-1].t if self.history else self._t0
+        with timed_stage(tr, "round.evaluate", round=r):
+            accuracy = self.global_accuracy()
         rec = FleetRoundRecord(
             t=t_prev + comp + comm, round=r,
-            accuracy=self.global_accuracy(), comm_bytes=comm_bytes,
+            accuracy=accuracy, comm_bytes=comm_bytes,
             comp_time=comp, comm_time=comm, n_participating=n_part,
             n_rejected=n_rejected)
         self.history.append(rec)
+        if tr.enabled:
+            self._emit_round_events(rec, idx, valid, m, mask)
+        span.set(n_participating=n_part, n_rejected=n_rejected)
+        span.set_virtual(t_prev, rec.t)
+        span.__exit__(None, None, None)
         return rec
+
+    def _emit_round_events(self, rec: FleetRoundRecord, idx, valid, m,
+                           mask) -> None:
+        """Per-participant detection audit (one `detect.verdict` instant
+        per cloud evaluation, Alg. 2's batch top-s form) + round metrics:
+        the trace alone rebuilds Fig. 6's per-round rejection series."""
+        tr = self.obs
+        thr = float(m["thr"])
+        nodes = idx[valid]
+        accs = m["accs"].cpu().numpy()[valid]
+        mask = mask[valid]
+        for i, node in enumerate(nodes):
+            tr.instant("detect.verdict", virt_t=rec.t, node=int(node),
+                       round=rec.round, accuracy=float(accs[i]),
+                       threshold=thr, rejected=bool(~mask[i]),
+                       detect=bool(self.cfg.detect))
+        mx = tr.metrics
+        if self.cfg.detect and nodes.size and detection.detect_fell_back(
+                accs, thr):
+            # the all-equal guard accepted everyone — the exact state a
+            # detection-aware attacker forces; auditable from the trace
+            mx.counter("detect.fallback").inc()
+        mx.histogram("round.size", WINDOW_SIZE_EDGES).observe(
+            rec.n_participating)
+        mx.counter("round.participants").inc(rec.n_participating)
+        mx.counter("round.rejected").inc(rec.n_rejected)
+        mx.counter("round.comm_bytes").inc(rec.comm_bytes)
+        mx.gauge("model.accuracy").set(rec.accuracy)
 
     def run(self, rounds: int) -> List[FleetRoundRecord]:
         for _ in range(rounds):
@@ -342,9 +393,6 @@ class FleetEngine:
 
     def global_accuracy(self) -> float:
         return float(self.acc_fn(self.params, *self.test_data))
-
-    def export_residuals(self):
-        return self.state.residuals
 
     def kappa(self) -> float:
         """Eq. (5) over the whole run."""

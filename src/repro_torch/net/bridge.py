@@ -9,11 +9,13 @@ window has two phases, matching the engines' host/device split:
      `LinkProfile`'s jitter/loss/contention), which feeds the clocks;
   2. ``commit(draw, nnz)`` — after the device returns the measured
      per-upload nonzero counts: exact encoded byte counts through the
-     codec, appended to the `NetTrace`.
+     codec, appended to the `NetTrace`, and — with a tracer enabled — one
+     ``net.upload`` instant per upload plus the ``net.*`` counters and
+     transfer-time histogram.
 
-Not ported yet: the reference's tracer events (`net.upload` instants and
-counters, ROADMAP.md item 14), checkpoint export/restore and the traffic
-trace's ``rate_scale`` (item 13; it stays None here).
+``rate_scale`` is the simulation service's traffic-trace throttle (None
+outside `sim.SimService`); `export_sim_state`/`restore_sim_state` carry
+the upload counters and the trace columns through a checkpoint.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..obs import SECONDS_EDGES, get_tracer
 from .codecs import Codec, get_codec
 from .link import LinkProfile, draw_transfer_batch, materialize_bandwidth
 
@@ -77,10 +80,13 @@ class NetSim:
     bandwidth_bps (N,) per-node base uplink rates, scaled lognormally per
     node at construction; n_params (model size, for the index width);
     sparsify_ratio (sets the nominal nonzero count of the pre-flight
-    draws); seed (root of the per-upload PRNG stream)."""
+    draws); seed (root of the per-upload PRNG stream); tracer (an
+    `obs.Tracer` for the per-upload events and metrics; defaults to the
+    process-global one, a no-op unless a run installed one)."""
 
     def __init__(self, codec, link: LinkProfile, bandwidth_bps: np.ndarray,
-                 n_params: int, sparsify_ratio: float = 1.0, seed: int = 0):
+                 n_params: int, sparsify_ratio: float = 1.0, seed: int = 0,
+                 tracer=None):
         self.codec: Codec = (get_codec(codec) if isinstance(codec, str)
                              else codec)
         link.validate()
@@ -95,7 +101,15 @@ class NetSim:
             np.asarray(self.codec.nbytes(self.nominal_nnz, self.n_params)))
         self._counters = np.zeros(self.eff_bandwidth_bps.shape[0], np.int64)
         self.trace = NetTrace(codec=self.codec.describe())
+        self._tracer = tracer
+        # per-node rate multiplier in (0, 1], set per round/window by the
+        # simulation service's traffic traces; None is the stationary
+        # default
         self.rate_scale: Optional[np.ndarray] = None
+
+    @property
+    def tracer(self):
+        return self._tracer if self._tracer is not None else get_tracer()
 
     def draw(self, nodes: np.ndarray,
              extra_concurrency: int = 0) -> UploadDraw:
@@ -129,10 +143,14 @@ class NetSim:
         return UploadDraw(nodes=nodes, seqs=seqs, transfer_s=transfer,
                           overhead_bytes=overhead, retransmits=retrans)
 
-    def commit(self, draw: UploadDraw, nnz: np.ndarray) -> np.ndarray:
+    def commit(self, draw: UploadDraw, nnz: np.ndarray,
+               ctx: Optional[Dict] = None) -> np.ndarray:
         """Resolve the batch's exact encoded bytes from the measured
         nonzero counts and append every upload to the trace.  Returns the
-        (U,) encoded byte counts."""
+        (U,) encoded byte counts.  ``ctx`` tags (``{"round": r}`` or
+        ``{"window": w}`` from the engines) are merged into each
+        ``net.upload`` instant, so trace consumers can key byte
+        accounting by record."""
         nnz = np.asarray(nnz, np.int64)
         if nnz.shape != draw.nodes.shape:
             raise ValueError(f"commit: nnz shape {nnz.shape} != draw batch "
@@ -147,14 +165,56 @@ class NetSim:
                             zip(enc, draw.overhead_bytes))
         t.transfer_s.extend(float(x) for x in draw.transfer_s)
         t.retransmits.extend(int(x) for x in draw.retransmits)
+        tr = self.tracer
+        if tr.enabled:
+            extra = ctx or {}
+            for i in range(draw.nodes.size):
+                tr.instant("net.upload", node=int(draw.nodes[i]),
+                           seq=int(draw.seqs[i]), nnz=int(nnz[i]),
+                           encoded_bytes=int(enc[i]),
+                           transfer_s=float(draw.transfer_s[i]),
+                           retransmits=int(draw.retransmits[i]), **extra)
+            m = tr.metrics
+            m.counter("net.uploads").inc(draw.nodes.size)
+            m.counter("net.encoded_bytes").inc(float(np.sum(enc)))
+            m.counter("net.retransmits").inc(
+                float(np.sum(draw.retransmits)))
+            h = m.histogram("net.transfer_s", SECONDS_EDGES)
+            for x in draw.transfer_s:
+                h.observe(float(x))
         return enc
 
     def summary(self) -> Dict:
         return self.trace.summary()
 
+    # -- checkpoint/resume (sim.SimService) ---------------------------------
+    _TRACE_COLUMNS = ("nodes", "seqs", "nnz", "encoded_bytes", "wire_bytes",
+                      "transfer_s", "retransmits")
+
+    def export_sim_state(self):
+        """(counters array, trace columns): what a bit-exact resume needs
+        beyond the constructor arguments — the per-node upload counters
+        drive the (seed, node, seq) PRNG stream, and the trace columns
+        rebuild the byte accounting (JSON floats round-trip exactly)."""
+        columns = {name: list(getattr(self.trace, name))
+                   for name in self._TRACE_COLUMNS}
+        return self._counters.copy(), columns
+
+    def restore_sim_state(self, counters, columns=None) -> None:
+        counters = np.asarray(counters, np.int64)
+        if counters.shape != self._counters.shape:
+            raise ValueError(
+                f"NetSim.restore_sim_state: counter shape {counters.shape} "
+                f"!= fleet shape {self._counters.shape}")
+        self._counters[:] = counters
+        if columns is not None:
+            for name in self._TRACE_COLUMNS:
+                col = getattr(self.trace, name)
+                col[:] = columns.get(name, [])
+
 
 def netsim_from_network(network, bandwidth_bps: np.ndarray, n_params: int,
-                        sparsify_ratio: float, seed: int
+                        sparsify_ratio: float, seed: int, tracer=None
                         ) -> Optional[NetSim]:
     """A `NetSim` from an `api.NetworkSpec`, or None when the spec keeps
     the analytic model (``codec == "analytic"``)."""
@@ -167,4 +227,4 @@ def netsim_from_network(network, bandwidth_bps: np.ndarray, n_params: int,
         loss_prob=network.loss_prob, mtu_bytes=network.mtu_bytes,
         shared_uplink_bps=network.shared_uplink_bps)
     return NetSim(codec, link, bandwidth_bps, n_params,
-                  sparsify_ratio=sparsify_ratio, seed=seed)
+                  sparsify_ratio=sparsify_ratio, seed=seed, tracer=tracer)

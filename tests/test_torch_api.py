@@ -2,11 +2,12 @@
 
 One spec JSON (schema v6) loads in both packages; contradictory specs
 raise the same `SpecError`; features the port does not have yet raise
-NotImplementedError; and the same small runs through both `run()`s from
-one population (the reference's params carried over) give the same
-records: equal t, comm_bytes, n_rejected and detections, accuracy within
-1/n_test, equal ε and κ, final params within atol 1e-4 (local SGD sums
-in another order in XLA than in PyTorch)."""
+NotImplementedError (observability and the simulation service compile
+into the reference's stages); and the same small runs through both
+`run()`s from one population (the reference's params carried over) give
+the same records: equal t, comm_bytes, n_rejected and detections,
+accuracy within 1/n_test, equal ε and κ, final params within atol 1e-4
+(local SGD sums in another order in XLA than in PyTorch)."""
 import dataclasses
 import os
 import subprocess
@@ -93,8 +94,6 @@ def test_contradictory_specs_raise_the_same_spec_error(case):
 UNPORTED = [
     lambda m: m.ExperimentSpec(topology=m.Topology(kind="sequential")),
     lambda m: m.ExperimentSpec(topology=m.Topology(kind="mesh")),
-    lambda m: m.ExperimentSpec(obs=m.ObsSpec(enabled=True)),
-    lambda m: m.ExperimentSpec(sim=m.SimSpec()),
 ]
 
 
@@ -104,6 +103,20 @@ def test_unported_features_raise_not_implemented(case):
     japi.compile_plan(ref)                  # valid for the reference
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tapi.compile_plan(port)
+
+
+PORTED = [
+    lambda m: m.ExperimentSpec(obs=m.ObsSpec(enabled=True)),
+    lambda m: m.ExperimentSpec(sim=m.SimSpec()),
+]
+
+
+@pytest.mark.parametrize("case", range(len(PORTED)))
+def test_obs_and_sim_specs_compile_as_in_the_reference(case):
+    """Observability and the simulation service are ported: both
+    packages compile these specs into the same stages."""
+    ref, port = _both(PORTED[case])
+    assert tapi.compile_plan(port).stages == japi.compile_plan(ref).stages
 
 
 def _full_network(m):
@@ -354,6 +367,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.fleet.async_engine' in sys.modules\n"
         "assert 'repro_torch.net.bridge' in sys.modules\n"
         "assert 'repro_torch.kernels.ops' in sys.modules\n"
+        "assert 'repro_torch.sim.service' in sys.modules\n"
+        "assert 'repro_torch.obs.analysis' in sys.modules\n"
+        "assert 'repro_torch.checkpointing.checkpoint' in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -23,7 +23,11 @@ y; a small model forward with K6 on the card within 1e-4 of the CPU, as
 the CPU parity tests hold the port to the reference, and the two-layer
 falcon-mamba and zamba2 likewise; the reference backend's noise chain
 (threefry -> uniform -> erf_inv) bitwise against the CPU, and the small
-buffered, trust and reference-noise runs as the network run.
+buffered, trust and reference-noise runs as the network run.  The
+observability and simulation layers: `obs.fence` waits for the card; a
+traced 1,000-node window, and a run resumed from a checkpoint on the
+card, are bit for bit their untraced and uninterrupted twins; a
+checkpoint written on the card restores on the CPU with equal arrays.
 """
 import numpy as np
 import pytest
@@ -965,3 +969,129 @@ def test_two_layer_ssm_models_on_the_card_match_the_cpu(cuda, arch):
     g_gpu = serve(p_gpu, cfg, prompts(cfg.vocab, 2, 20, device=cuda),
                   9)["tokens"]
     assert torch.equal(g_cpu, g_gpu.cpu())
+
+
+# ---------------------------------------------------------------------------
+# observability and the simulation service on the card
+# ---------------------------------------------------------------------------
+
+def test_fence_waits_on_a_long_kernel(cuda):
+    """`obs.fence` returns only after the work queued before it on the
+    current stream has run (an event recorded behind that work has
+    completed), and hands its argument back unchanged."""
+    from repro_torch.obs import fence
+
+    x = torch.randn(4096, 4096, device=cuda) / 64
+    torch.cuda.synchronize()
+    y = x
+    for _ in range(20):                 # ~2.7 TFLOP of float32 matmuls
+        y = y @ x
+    behind = torch.cuda.Event()
+    behind.record()
+    assert not behind.query()
+    nest = {"out": (y, [3.0, "host"])}
+    assert fence(nest) is nest
+    assert behind.query()
+
+
+def _paper_async(n_nodes, rounds=1, sim=None):
+    return api.ExperimentSpec(
+        fleet=api.FleetSpec(n_nodes=n_nodes, model="cnn", hw=(28, 28),
+                            samples_per_node=60,
+                            attack=api.AttackMix(malicious_frac=0.3,
+                                                 flip_src=1, flip_dst=7)),
+        schedule=api.SchedulePolicy(kind="async"),
+        privacy=api.PrivacySpec(sigma=0.05),
+        compression=api.CompressionSpec(sparsify_ratio=0.1),
+        defense=api.DefenseSpec(detect=True, detect_s=80.0),
+        network=api.NetworkSpec(codec="sparse_bitpack", bandwidth_sigma=1.0,
+                                latency_s=0.02, jitter_s=0.1,
+                                loss_prob=0.2),
+        topology=api.Topology(backend="pallas"),
+        train=api.TrainSpec(local_steps=5, batch_size=16, lr=0.1),
+        rounds=rounds, seed=0, sim=sim)
+
+
+def _bitwise(a, b):
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def test_traced_1000_node_window_is_bitwise_the_untraced_one(cuda):
+    from repro_torch import obs
+
+    spec = _paper_async(1000)
+    plan = api.compile_plan(spec)
+    pop = api.materialize(spec, device="cuda")
+    sink = obs.MemorySink()
+    tracer = obs.Tracer(sinks=[sink], stage_timings=True)
+    got = []
+    for tr in (obs.Tracer(enabled=False), tracer):
+        with obs.use_tracer(tr):
+            eng = api.make_engine(plan, pop, device="cuda")
+            rec = eng.run_window()
+        got.append((rec, eng.params, eng.state.next_arrival.clone(),
+                    eng.state.acc_ring.clone()))
+    (r0, p0, a0, g0), (r1, p1, a1, g1) = got
+    assert r1 == r0 and _bitwise(p0, p1)
+    assert torch.equal(a0, a1) and torch.equal(g0.isnan(), g1.isnan())
+    assert torch.equal(g0.nan_to_num(), g1.nan_to_num())
+    names = {e.name for e in sink.events}
+    assert {"window", "arrival", "detect.verdict", "net.upload",
+            "stage.window.device"} <= names
+    verdicts = [e for e in sink.events if e.name == "detect.verdict"]
+    assert sum(e.tags["rejected"] for e in verdicts) == r1.n_rejected
+    assert len(verdicts) == r1.n_processed
+
+
+def _small_sim():
+    return _paper_async(16, rounds=4, sim=api.SimSpec(
+        traces=(api.TrafficTrace(kind="diurnal", period_s=2.0,
+                                 amplitude=0.5),),
+        events=(api.SimEvent(at_round=2, kind="attack", payload={
+            "kind": "label_flip", "malicious_frac": 0.5}),)))
+
+
+def test_resume_on_the_card_is_bitwise_the_uninterrupted_run(cuda,
+                                                             tmp_path):
+    from repro_torch.sim import SimService
+
+    plan = api.compile_plan(_small_sim())
+    base = SimService(plan, device="cuda").run()
+    for kill in (1, 3):
+        svc = SimService(plan, device="cuda")
+        svc.run(max_records=kill)
+        path = svc.checkpoint(str(tmp_path / f"ck{kill}"))
+        del svc
+        rep = SimService.resume(path, device="cuda").run()
+        assert rep.records == base.records and rep.net == base.net
+        assert rep.epsilon_spent == base.epsilon_spent
+        assert _bitwise(rep.final_params, base.final_params)
+
+
+def test_card_checkpoint_restores_on_the_cpu_with_equal_arrays(cuda,
+                                                               tmp_path):
+    from repro_torch.sim import SimService
+
+    svc = SimService(api.compile_plan(_small_sim()), device="cuda")
+    svc.run(max_records=3)
+    path = svc.checkpoint(str(tmp_path / "ck"))
+    want, want_meta = svc.stepper.export_state()
+    cpu = SimService.resume(path, device="cpu")
+    got, got_meta = cpu.stepper.export_state()
+    assert got_meta == want_meta
+    assert cpu.state.params["fc"]["w"].device.type == "cpu"
+    flat_w, flat_g = _flat(want), _flat(got)
+    assert sorted(flat_w) == sorted(flat_g)
+    for k in flat_w:
+        a, b = np.asarray(flat_w[k]), np.asarray(flat_g[k])
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+
+
+def _flat(t, prefix=""):
+    if isinstance(t, dict):
+        out = {}
+        for k in t:
+            out.update(_flat(t[k], f"{prefix}/{k}"))
+        return out
+    return {prefix: t}
