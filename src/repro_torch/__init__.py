@@ -4,7 +4,7 @@ The JAX package `repro` is the reference; this package runs the same
 framework (ALDPFL and its synchronous sibling, through the same
 `api.run(api.compile_plan(spec))` entry point, with the network layer,
 the observability layer `obs` and the simulation service `sim` with its
-checkpoints) and the model zoo's dense, ssm and hybrid families (`models`,
+checkpoints) and the model zoo's six families (`models`,
 `launch.serve`) on one NVIDIA GPU, with hand-written CUDA kernels
 (`kernels/`, sources in `csrc/`) in place of every Pallas kernel of the
 reference.  It imports

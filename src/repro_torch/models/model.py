@@ -1,10 +1,15 @@
-"""The model zoo's decoder: dense, ssm and hybrid families.
+"""The model zoo's decoder: all six architecture families.
 
-Port of `repro.models.model` for ``cfg.family`` "dense" (smollm-360m,
-qwen1.5-0.5b, olmo-1b, codeqwen1.5-7b), "ssm" (falcon-mamba-7b: a stack
-of Mamba1 blocks) and "hybrid" (zamba2-1.2b: Mamba2 blocks with one
-shared attention block after every ``cfg.attn_every`` of them).  Public
-API, as the reference's:
+Port of `repro.models.model` for every ``cfg.family``: "dense"
+(smollm-360m, qwen1.5-0.5b, olmo-1b, codeqwen1.5-7b), "moe" (kimi-k2,
+llama4-scout: the dense block with its MLP replaced by `models.moe`),
+"ssm" (falcon-mamba-7b: a stack of Mamba1 blocks), "hybrid" (zamba2-1.2b:
+Mamba2 blocks with one shared attention block after every
+``cfg.attn_every`` of them), "vlm" (qwen2-vl-72b: dense blocks over
+[patch embeddings; tokens] with M-RoPE positions) and "audio"
+(whisper-large-v3: a non-causal encoder over precomputed frames, and a
+decoder whose blocks cross-attend to its output).  Public API, as the
+reference's:
 
   init_params(cfg, generator, device)              -> params
   forward(params, cfg, batch)                      -> (logits, aux_loss)
@@ -13,32 +18,31 @@ API, as the reference's:
   prefill(params, cfg, batch, cache)               -> (logits, cache)
   decode_step(params, cfg, tokens, cache)          -> (logits, cache)
 
-Params keep the reference's stacked layout: every leaf of
-``params["blocks"]`` has a leading n_layers axis, so `convert.to_torch`
+``batch`` holds tokens (B, S) and, for the vlm family, patches
+(B, P, d), for the audio family frames (B, F, d).  Params keep the
+reference's stacked layout: every leaf of ``params["blocks"]`` (and of
+the audio encoder's) has a leading layer axis, so `convert.to_torch`
 carries a JAX param tree across as it is.  The reference scans the layer
 stack; here a Python loop walks it.  With ``cfg.use_flash`` every causal
-self-attention of `forward` (the dense blocks, zamba2's shared block)
-runs kernel K6 (`kernels.ops.attention_pallas`); `prefill` and
-`decode_step` use `models.attention`, as the reference does.  The Mamba
-blocks run the reference's chunked scans (`models.ssm`), which call
-neither K7 nor K8, as in the reference.  ``remat`` and ``seq_parallel``
-change no forward value and are ignored.
+self-attention of `forward` (the dense, moe, vlm and audio decoder
+blocks, zamba2's shared block) runs kernel K6
+(`kernels.ops.attention_pallas`); the audio encoder and the
+cross-attention, `prefill` and `decode_step` use `models.attention`, as
+the reference does.  The Mamba blocks run the reference's chunked scans
+(`models.ssm`), which call neither K7 nor K8, as in the reference.
+``remat`` and ``seq_parallel`` change no forward value and are ignored.
 
 Serving with a float32 cache under a bfloat16 model (what
 `launch.serve` does) promotes as jnp does: a decode attention reads
 float32 keys, so its output and from there the residual stream are
-float32 (every dense layer; zamba2 after its first shared block; never
-falcon-mamba, whose float32 SSM state is cast back to the stream's
-dtype).  The reference's scanned dense `decode_step` refuses that change
-of carry dtype; its blocks, called one by one, compute what the loop
-here computes.  The SSM states are replaced by each prefill and decode
-step (stacked per layer, promoted as jnp's concatenate does), so the
-conv state takes the stream's dtype as in the reference; the KV caches
-are written in place.
-
-The moe, vlm and audio families load their configs, and every function
-here raises `NotImplementedError` on them naming the ROADMAP.md item
-that ports them.
+float32 (every attention family's layers; zamba2 after its first shared
+block; never falcon-mamba, whose float32 SSM state is cast back to the
+stream's dtype).  The reference's scanned `decode_step` refuses that
+change of carry dtype; its blocks, called one by one, compute what the
+loop here computes.  The SSM states are replaced by each prefill and
+decode step (stacked per layer, promoted as jnp's concatenate does), so
+the conv state takes the stream's dtype as in the reference; the KV and
+cross caches are written in place.
 """
 from __future__ import annotations
 
@@ -52,25 +56,39 @@ from . import attention as attn
 from . import ssm
 from .config import ModelConfig
 from .layers import (apply_rope, dtype_of, embed_fwd, init_embedding,
-                     init_mlp, init_norm, linear_fwd, mlp_fwd, norm_fwd,
-                     rope_angles, unembed_fwd)
+                     init_mlp, init_norm, linear_fwd, mlp_fwd, mrope_angles,
+                     norm_fwd, rope_angles, unembed_fwd)
+from .moe import init_moe, moe_fwd
 
-_PORTED = ("dense", "ssm", "hybrid")
-_LATER = {"moe": "16c", "vlm": "16c", "audio": "16c"}
+# families whose layers are transformer blocks over a KV cache
+_ATTENTION = ("dense", "moe", "vlm", "audio")
+_FAMILIES = _ATTENTION + ("ssm", "hybrid")
 
 
-def _require_ported(cfg: ModelConfig, what: str) -> None:
-    if cfg.family in _PORTED:
-        return
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{what}: the {cfg.family!r} family ({cfg.name}) is not ported "
-            f"to repro_torch yet (ROADMAP.md item {_LATER[cfg.family]})")
-    raise ValueError(f"unknown family {cfg.family}")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family}")
 
 
 def _layer(blocks: dict, i: int) -> dict:
     return tree_util.map(lambda a: a[i], blocks)
+
+
+def _stacked(init, n: int) -> dict:
+    """n layers of ``init()`` stacked on a leading axis.  The stack is
+    allocated once and each layer copied in as it is drawn, so a
+    full-width init holds the stack and one layer, never two stacks."""
+    first = init()
+    if n == 1:
+        return tree_util.map(lambda a: a[None], first)
+    stack = tree_util.map(
+        lambda a: torch.empty((n,) + tuple(a.shape), dtype=a.dtype,
+                              device=a.device), first)
+    for i in range(n):
+        layer = first if i == 0 else init()
+        tree_util.map(lambda s, a: s[i].copy_(a), stack, layer)
+        first = layer = None
+    return stack
 
 
 # ---------------------------------------------------------------------------
@@ -78,25 +96,45 @@ def _layer(blocks: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _init_transformer_block(gen: torch.Generator, cfg: ModelConfig,
-                            device) -> dict:
-    """A dense block (the reference's kind "dense")."""
+                            device, kind: str = "dense") -> dict:
+    """kind: 'dense' | 'moe' | 'enc' | 'dec_cross', as the reference's."""
     hd = cfg.derived_head_dim()
     dt = cfg.param_dtype
-    return {
+    p = {
         "norm1": init_norm(cfg.norm, cfg.d_model, dt, device),
         "attn": attn.init_attention(gen, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, hd, cfg.qkv_bias, dt,
                                     device),
         "norm2": init_norm(cfg.norm, cfg.d_model, dt, device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dt, device),
     }
+    if kind == "moe":
+        p["moe"] = init_moe(gen, cfg, dt, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp, dt, device)
+    if kind == "dec_cross":
+        p["norm_x"] = init_norm(cfg.norm, cfg.d_model, dt, device)
+        p["cross"] = attn.init_attention(gen, cfg.d_model, cfg.n_heads,
+                                         cfg.n_kv_heads, hd, cfg.qkv_bias,
+                                         dt, device)
+    return p
+
+
+def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block's MLP or MoE, and its aux loss (0 for an MLP)."""
+    if "moe" in p:
+        return moe_fwd(p["moe"], cfg, x)
+    return mlp_fwd(cfg.mlp, p["mlp"], x), torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def _transformer_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
                            angles: Optional[torch.Tensor], *, causal: bool,
-                           window: int) -> torch.Tensor:
-    """One dense block; the reference also returns its MoE aux loss, which
-    is 0 for a dense block."""
+                           window: int,
+                           enc_out: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block (dense, moe, encoder, or with ``enc_out`` a decoder
+    block that cross-attends to it) -> (x, aux loss)."""
     hd = cfg.derived_head_dim()
     h = norm_fwd(cfg.norm, p["norm1"], x, cfg.norm_eps)
     q, k, v = attn.qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, hd)
@@ -109,8 +147,26 @@ def _transformer_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
                            chunk=cfg.attn_chunk)
     B, S = x.shape[:2]
     x = x + linear_fwd(p["attn"]["wo"], o.reshape(B, S, -1))
+    if enc_out is not None:
+        h = norm_fwd(cfg.norm, p["norm_x"], x, cfg.norm_eps)
+        q2 = linear_fwd(p["cross"]["wq"], h).reshape(B, S, cfg.n_heads, hd)
+        k2, v2 = _cross_kv(p["cross"], cfg, enc_out)
+        o2 = attn.attention(q2, k2, v2, causal=False, window=0,
+                            chunk=cfg.attn_chunk)
+        x = x + linear_fwd(p["cross"]["wo"], o2.reshape(B, S, -1))
     h = norm_fwd(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + mlp_fwd(cfg.mlp, p["mlp"], h)
+    y, aux = _ffn(p, cfg, h)
+    return x + y, aux
+
+
+def _cross_kv(p_cross: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    """The cross-attention's keys and values of the encoder output
+    (B, F, KV, D) each."""
+    B, F = enc_out.shape[:2]
+    hd = cfg.derived_head_dim()
+    k = linear_fwd(p_cross["wk"], enc_out).reshape(B, F, cfg.n_kv_heads, hd)
+    v = linear_fwd(p_cross["wv"], enc_out).reshape(B, F, cfg.n_kv_heads, hd)
+    return k, v
 
 
 def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig,
@@ -146,10 +202,11 @@ def _mamba_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cpu") -> Dict[str, Any]:
     """Random params from a seeded ``generator`` at the reference's
-    scales and dtypes (the draws differ from `jax.random`'s; tests carry
-    the reference's params across with `convert.to_torch`).  A generator
-    on the card draws there, which is what a full-size init wants."""
-    _require_ported(cfg, "init_params")
+    scales and dtypes, in the reference's tree (the draws differ from
+    `jax.random`'s; tests carry the reference's params across with
+    `convert.to_torch`).  A generator on the card draws there, which is
+    what a full-size init wants."""
+    _check_family(cfg)
     params: Dict[str, Any] = {
         "embed": init_embedding(generator, cfg.vocab, cfg.d_model,
                                 cfg.param_dtype, device),
@@ -159,13 +216,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["unembed"] = init_embedding(generator, cfg.vocab, cfg.d_model,
                                            cfg.param_dtype, device)
-    block = _init_transformer_block if cfg.family == "dense" \
-        else _init_mamba_block
-    layers = [block(generator, cfg, device) for _ in range(cfg.n_layers)]
-    params["blocks"] = tree_util.map(lambda *xs: torch.stack(xs), *layers)
-    if cfg.family == "hybrid":
+    fam = cfg.family
+    if fam in ("ssm", "hybrid"):
+        block = lambda: _init_mamba_block(generator, cfg, device)  # noqa
+    else:
+        kind = {"moe": "moe", "audio": "dec_cross"}.get(fam, "dense")
+        block = lambda: _init_transformer_block(  # noqa: E731
+            generator, cfg, device, kind)
+    params["blocks"] = _stacked(block, cfg.n_layers)
+    if fam == "hybrid":
         params["shared_attn"] = _init_transformer_block(generator, cfg,
                                                         device)
+    if fam == "audio":
+        params["encoder"] = {
+            "blocks": _stacked(lambda: _init_transformer_block(
+                generator, cfg, device, "enc"), cfg.encoder_layers),
+            "final_norm": init_norm(cfg.norm, cfg.d_model, cfg.param_dtype,
+                                    device),
+        }
     return params
 
 
@@ -177,14 +245,68 @@ def _angles_for(cfg: ModelConfig, positions: torch.Tensor
                 ) -> Optional[torch.Tensor]:
     if cfg.rope_mode == "none":
         return None
+    hd = cfg.derived_head_dim()
     if cfg.rope_mode == "mrope":
-        raise NotImplementedError("M-RoPE positions come with the vlm "
-                                  "family (ROADMAP.md item 16c)")
-    return rope_angles(positions, cfg.derived_head_dim(), cfg.rope_theta)
+        # positions (B, S) text-style -> identical t/h/w sections
+        p3 = torch.stack([positions, positions, positions])
+        return mrope_angles(p3, hd, cfg.rope_theta, cfg.mrope_sections)
+    return rope_angles(positions, hd, cfg.rope_theta)
+
+
+def _vlm_angles(cfg: ModelConfig, B: int, P: int, S_text: int,
+                device) -> torch.Tensor:
+    """M-RoPE ids: patches at t = 0 on the (gh, gw) grid, then text
+    linear from max(patch_grid)."""
+    gh, gw = cfg.patch_grid
+    ar = torch.arange(P, device=device)
+    base = int(max(cfg.patch_grid))
+    t_t = base + torch.arange(S_text, device=device)
+    pos_t = torch.cat([torch.zeros_like(ar), t_t])
+    pos_h = torch.cat([ar // gw, t_t])
+    pos_w = torch.cat([ar % gw, t_t])
+    p3 = torch.stack([pos_t, pos_h, pos_w])[:, None, :].repeat(1, B, 1)
+    return mrope_angles(p3, cfg.derived_head_dim(), cfg.rope_theta,
+                        cfg.mrope_sections)
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].repeat(B, 1)
+
+
+def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict):
+    """The residual stream's input and the text's RoPE angles: the token
+    embeddings, after the vlm family's patches (whose M-RoPE ids come
+    first).  Returns (x, angles, text length)."""
+    tokens = batch["tokens"]
+    B, S_text = tokens.shape
+    cdt = dtype_of(cfg.compute_dtype)
+    x = embed_fwd(params["embed"], tokens, cdt)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(cdt)
+        P = patches.shape[1]
+        return (torch.cat([patches, x], dim=1),
+                _vlm_angles(cfg, B, P, S_text, x.device), S_text)
+    return x, _angles_for(cfg, _positions(B, S_text, x.device)), S_text
+
+
+def _encode_audio(params: dict, cfg: ModelConfig, frames: torch.Tensor
+                  ) -> torch.Tensor:
+    """The audio encoder: non-causal blocks over the frames (RoPE over
+    the frame index; no K6), then its final norm."""
+    B, Fa = frames.shape[:2]
+    angles = _angles_for(cfg, _positions(B, Fa, frames.device))
+    enc = params["encoder"]
+    x = frames
+    for i in range(cfg.encoder_layers):
+        x, _ = _transformer_block_fwd(_layer(enc["blocks"], i), cfg, x,
+                                      angles, causal=False, window=0)
+    return norm_fwd(cfg.norm, enc["final_norm"], x, cfg.norm_eps)
+
+
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = norm_fwd(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return unembed_fwd(head, x)
 
 
 # ---------------------------------------------------------------------------
@@ -193,22 +315,25 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def forward(params: dict, cfg: ModelConfig, batch: dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _require_ported(cfg, "forward")
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_fwd(params["embed"], tokens, dtype_of(cfg.compute_dtype))
-    if cfg.family == "dense":
-        angles = _angles_for(cfg, _positions(B, S, x.device))
-        for i in range(cfg.n_layers):
-            x = _transformer_block_fwd(_layer(params["blocks"], i), cfg, x,
-                                       angles, causal=True,
-                                       window=cfg.sliding_window)
-    else:
-        x = _mamba_forward(params, cfg, x)
-    x = norm_fwd(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    """Logits over the text positions (B, S, V) and the MoE aux loss
+    summed over the layers (0 for the other families)."""
+    _check_family(cfg)
+    x, angles, S_text = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return unembed_fwd(head, x), aux
+    if cfg.family in _ATTENTION:
+        enc_out = None
+        if cfg.family == "audio":
+            enc_out = _encode_audio(
+                params, cfg, batch["frames"].to(dtype_of(cfg.compute_dtype)))
+        for i in range(cfg.n_layers):
+            x, a = _transformer_block_fwd(
+                _layer(params["blocks"], i), cfg, x, angles, causal=True,
+                window=cfg.sliding_window, enc_out=enc_out)
+            aux = aux + a
+        x = x[:, -S_text:]
+    else:
+        x = _mamba_forward(params, cfg, x, angles)
+    return _head(params, cfg, x), aux
 
 
 def _hybrid_groups(cfg: ModelConfig):
@@ -230,19 +355,18 @@ def _attn_after(cfg: ModelConfig, start: int, size: int) -> bool:
     return bool(cfg.attn_every) and (start + size) % cfg.attn_every == 0
 
 
-def _mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor
-                   ) -> torch.Tensor:
+def _mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                   angles) -> torch.Tensor:
     """The ssm and hybrid stacks: the Mamba blocks group by group, the
-    hybrid family's shared attention block after each full group."""
-    B, S = x.shape[:2]
-    angles = _angles_for(cfg, _positions(B, S, x.device))
+    hybrid family's shared attention block after each full group (a
+    dense block: its aux loss is 0)."""
     for start, size in _hybrid_groups(cfg):
         for i in range(start, start + size):
             x = _mamba_block_fwd(_layer(params["blocks"], i), cfg, x)[0]
         if _attn_after(cfg, start, size):
             x = _transformer_block_fwd(params["shared_attn"], cfg, x,
                                        angles, causal=True,
-                                       window=cfg.sliding_window)
+                                       window=cfg.sliding_window)[0]
     return x
 
 
@@ -279,24 +403,32 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device="cpu") -> dict:
-    """The KV cache of every dense layer ("kv"); for the ssm and hybrid
-    families the float32 SSM state of every layer ("ssm") and, for the
-    hybrid family, one KV slot per shared-attention call ("attn")."""
-    _require_ported(cfg, "init_cache")
+    """The KV cache of every attention layer ("kv"), and for the audio
+    family every decoder layer's cross keys and values over the
+    ``n_audio_frames`` encoder outputs ("cross", filled by `prefill`);
+    for the ssm and hybrid families the float32 SSM state of every layer
+    ("ssm") and, for the hybrid family, one KV slot per shared-attention
+    call ("attn")."""
+    _check_family(cfg)
     hd = cfg.derived_head_dim()
     C = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     cache: Dict[str, Any] = {
         "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
+    def zeros(n: int, length: int) -> torch.Tensor:
+        return torch.zeros((n, batch, length, cfg.n_kv_heads, hd),
+                           dtype=dtype, device=device)
+
     def kv_stack(n: int) -> dict:
-        shape = (n, batch, C, cfg.n_kv_heads, hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device),
+        return {"k": zeros(n, C), "v": zeros(n, C),
                 "idx": torch.zeros(n, dtype=torch.int32, device=device)}
 
-    if cfg.family == "dense":
+    if cfg.family in _ATTENTION:
         cache["kv"] = kv_stack(cfg.n_layers)
+        if cfg.family == "audio":
+            cache["cross"] = {"k": zeros(cfg.n_layers, cfg.n_audio_frames),
+                              "v": zeros(cfg.n_layers, cfg.n_audio_frames)}
         return cache
     init = ssm.init_mamba1_state if cfg.family == "ssm" \
         else ssm.init_mamba2_state
@@ -312,8 +444,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def _attn_block_with_cache(p, cfg: ModelConfig, x, angles, cache_layer,
-                           decode=False):
-    """Runs one transformer block, reading/writing the layer KV cache."""
+                           cross_cache=None, decode=False):
+    """Runs one transformer block, reading/writing the layer KV cache;
+    with ``cross_cache`` (the layer's cross keys and values) it
+    cross-attends to the encoder output.  Returns (x, cache_layer)."""
     hd = cfg.derived_head_dim()
     B, S = x.shape[:2]
     h = norm_fwd(cfg.norm, p["norm1"], x, cfg.norm_eps)
@@ -327,16 +461,35 @@ def _attn_block_with_cache(p, cfg: ModelConfig, x, angles, cache_layer,
         o = attn.attention(q, k, v, causal=True, window=cfg.sliding_window,
                            chunk=cfg.attn_chunk)
     x = x + linear_fwd(p["attn"]["wo"], o.reshape(B, S, -1))
+    if cross_cache is not None:
+        h = norm_fwd(cfg.norm, p["norm_x"], x, cfg.norm_eps)
+        q2 = linear_fwd(p["cross"]["wq"], h).reshape(B, S, cfg.n_heads, hd)
+        kc, vc = cross_cache["k"], cross_cache["v"]
+        if decode:      # read as cached (float32 under launch.serve)
+            o2 = attn.decode_attend(q2, {
+                "k": kc, "v": vc,
+                "idx": torch.tensor(kc.shape[1], dtype=torch.int32,
+                                    device=kc.device)})
+        else:
+            o2 = attn.attention(q2, kc.to(x.dtype), vc.to(x.dtype),
+                                causal=False, chunk=cfg.attn_chunk)
+        x = x + linear_fwd(p["cross"]["wo"], o2.reshape(B, S, -1))
     h = norm_fwd(cfg.norm, p["norm2"], x, cfg.norm_eps)
-    return x + mlp_fwd(cfg.mlp, p["mlp"], h), cache_layer
+    y, _ = _ffn(p, cfg, h)
+    return x + y, cache_layer
 
 
 def _attn_slot(p: dict, cfg: ModelConfig, x: torch.Tensor, angles,
-               kv: dict, i: int, decode: bool) -> torch.Tensor:
+               kv: dict, i: int, decode: bool,
+               cross: Optional[dict] = None) -> torch.Tensor:
     """One attention block over slot ``i`` of a stacked KV cache (k and v
-    written in place, the slot's token count updated)."""
+    written in place, the slot's token count updated), and over slot
+    ``i`` of the cross cache when there is one."""
     layer = {"k": kv["k"][i], "v": kv["v"][i], "idx": kv["idx"][i]}
+    cross_layer = None if cross is None else {"k": cross["k"][i],
+                                              "v": cross["v"][i]}
     x, layer = _attn_block_with_cache(p, cfg, x, angles, layer,
+                                      cross_cache=cross_layer,
                                       decode=decode)
     kv["idx"][i] = layer["idx"]
     return x
@@ -344,13 +497,13 @@ def _attn_slot(p: dict, cfg: ModelConfig, x: torch.Tensor, angles,
 
 def _run_cached(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 angles, cache: dict, decode: bool) -> torch.Tensor:
-    """Every layer over its cache: the dense layers' KV slots, or the
-    Mamba layers' states (replaced) and the hybrid family's shared
-    attention slots."""
-    if cfg.family == "dense":
+    """Every layer over its cache: the attention layers' KV slots (and
+    the audio family's cross slots), or the Mamba layers' states
+    (replaced) and the hybrid family's shared attention slots."""
+    if cfg.family in _ATTENTION:
         for i in range(cfg.n_layers):
             x = _attn_slot(_layer(params["blocks"], i), cfg, x, angles,
-                           cache["kv"], i, decode)
+                           cache["kv"], i, decode, cache.get("cross"))
         return x
     block = _mamba_decode_block if decode else _mamba_block_fwd
     states = []
@@ -371,30 +524,37 @@ def _run_cached(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict
             ) -> Tuple[torch.Tensor, dict]:
-    """Consume the prompt, fill the cache, return the last-position
-    logits (B, 1, V)."""
-    _require_ported(cfg, "prefill")
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_fwd(params["embed"], tokens, dtype_of(cfg.compute_dtype))
-    angles = _angles_for(cfg, _positions(B, S, x.device))
+    """Consume the prompt (after the vlm family's patches), fill the
+    cache (the audio family's cross keys and values of every layer
+    first), return the last-position logits (B, 1, V)."""
+    _check_family(cfg)
+    x, angles, _ = _embed_inputs(params, cfg, batch)
+    if cfg.family == "audio":
+        enc_out = _encode_audio(
+            params, cfg, batch["frames"].to(dtype_of(cfg.compute_dtype)))
+        cross = cache["cross"]
+        for i in range(cfg.n_layers):
+            k2, v2 = _cross_kv(_layer(params["blocks"], i)["cross"], cfg,
+                               enc_out)
+            cross["k"][i].copy_(k2)
+            cross["v"][i].copy_(v2)
     x = _run_cached(params, cfg, x, angles, cache, decode=False)
-    cache["pos"] = cache["pos"] + S
-    x = norm_fwd(cfg.norm, params["final_norm"], x[:, -1:], cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed_fwd(head, x), cache
+    cache["pos"] = cache["pos"] + x.shape[1]
+    return _head(params, cfg, x[:, -1:]), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
     """tokens (B, 1) -> (logits (B, 1, V), cache updated)."""
-    _require_ported(cfg, "decode_step")
+    _check_family(cfg)
     x = embed_fwd(params["embed"], tokens, dtype_of(cfg.compute_dtype))
     B = x.shape[0]
     pos = cache["pos"][None].repeat(B)[:, None]                   # (B, 1)
+    if cfg.family == "vlm":
+        # text rope position: patches occupy grid positions, text restarts
+        # at max(patch_grid) (M-RoPE); cache["pos"] counts patches + text
+        pos = pos - cfg.n_patches + int(max(cfg.patch_grid))
     angles = _angles_for(cfg, pos)
     x = _run_cached(params, cfg, x, angles, cache, decode=True)
     cache["pos"] = cache["pos"] + 1
-    x = norm_fwd(cfg.norm, params["final_norm"], x, cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed_fwd(head, x), cache
+    return _head(params, cfg, x), cache

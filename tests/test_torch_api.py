@@ -370,6 +370,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.sim.service' in sys.modules\n"
         "assert 'repro_torch.obs.analysis' in sys.modules\n"
         "assert 'repro_torch.checkpointing.checkpoint' in sys.modules\n"
+        "assert 'repro_torch.models.moe' in sys.modules\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env,

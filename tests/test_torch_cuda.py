@@ -38,7 +38,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ldp_noise as ldp
 from repro_torch.kernels.ops import attention_pallas
-from repro_torch.launch.serve import prompts, serve
+from repro_torch.launch.serve import prompts, request_batch, serve
 from repro_torch.models import forward, init_params
 from repro_torch.models.ssm import softplus
 from repro_torch.kernels import selective_scan as ss
@@ -607,6 +607,7 @@ def test_small_zoo_runs_on_the_card_match_the_cpu(cuda, case):
     (2, 4, 2, 200, 128, torch.bfloat16, 0),      # tensor cores: 3 q terms
     (1, 3, 1, 77, 80, torch.bfloat16, 20),       # D padded to 96, 3 q terms
     (2, 4, 2, 1000, 64, torch.bfloat16, 0),      # unaligned tail of keys
+    (2, 64, 8, 2048, 112, torch.bfloat16, 0),    # kimi-k2: D 112 padded
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, h, kv, s, d, dtype,
                                               window):
@@ -696,22 +697,31 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
         fa.flash_attention(z, z, z)
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen1.5-0.5b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen1.5-0.5b",
+                                  "kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
+                                  "qwen2-vl-72b", "whisper-large-v3"])
 def test_two_layer_model_with_flash_on_the_card_matches_the_cpu(cuda, arch):
+    """K6 once per decoder layer (the audio encoder and the
+    cross-attention run without it); the vlm patches and audio frames as
+    `request_batch` draws them."""
     cfg = get_smoke_config(arch).replace(use_flash=True, attn_chunk=16)
     p_cpu = init_params(cfg, torch.Generator().manual_seed(0))
     p_gpu = tree.map(lambda t: t.to(cuda), p_cpu)
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 100)).astype(np.int32))
+    extras = request_batch(cfg, 2, 20)
+    extras.pop("tokens")
+    on = lambda d, dev: {k: v.to(dev) for k, v in d.items()}  # noqa: E731
     before = fa.flash_attention.launches
     with torch.no_grad():
-        l_cpu, _ = forward(p_cpu, cfg, {"tokens": toks})
-        l_gpu, _ = forward(p_gpu, cfg, {"tokens": toks.to(cuda)})
+        l_cpu, _ = forward(p_cpu, cfg, dict(extras, tokens=toks))
+        l_gpu, _ = forward(p_gpu, cfg, on(dict(extras, tokens=toks), cuda))
     assert fa.flash_attention.launches == before + cfg.n_layers
     assert float((l_gpu.cpu() - l_cpu).abs().max()) <= 1e-4
-    g_cpu = serve(p_cpu, cfg, prompts(cfg.vocab, 2, 20), 9)["tokens"]
-    g_gpu = serve(p_gpu, cfg, prompts(cfg.vocab, 2, 20, device=cuda),
-                  9)["tokens"]
+    g_cpu = serve(p_cpu, cfg, prompts(cfg.vocab, 2, 20), 9,
+                  **extras)["tokens"]
+    g_gpu = serve(p_gpu, cfg, prompts(cfg.vocab, 2, 20, device=cuda), 9,
+                  **on(extras, cuda))["tokens"]
     assert torch.equal(g_cpu, g_gpu.cpu())
 
 

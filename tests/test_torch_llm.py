@@ -1,4 +1,5 @@
-"""The model zoo's dense decoder in the port against the reference.
+"""The model zoo's decoder (every family) in the port against the
+reference.
 
 The same params (the reference's, carried across with `convert.to_torch`)
 and the same numpy inputs go through `repro.models` (unjitted; its flash
@@ -18,7 +19,10 @@ Tolerances and why:
     computes them in float32, where PyTorch rounds after every op, so
     logits agree to a few bfloat16 ulps of their scale: 5e-2 absolute on
     logits of magnitude about 1, and greedy tokens on at least 90% of
-    positions of a two-layer model.
+    positions of a two-layer model (1e-1 for a MoE's decode over a
+    float32 cache: `test_bfloat16_family_over_float32_cache_decode`);
+  * the MoE aux loss within 1e-5 relative; the audio family's cross
+    cache as the KV cache.
 """
 import dataclasses
 
@@ -44,6 +48,9 @@ from repro_torch.models import model as tm
 
 TOL = 2e-6
 ARCHS = ("smollm-360m", "qwen1.5-0.5b", "olmo-1b")
+# the moe, vlm and audio families
+NEW_ARCHS = ("kimi-k2-1t-a32b", "llama4-scout-17b-a16e", "qwen2-vl-72b",
+             "whisper-large-v3")
 
 
 def _t(a):
@@ -80,17 +87,33 @@ def test_configs_are_the_reference_configs(arch):
     assert dataclasses.asdict(lc_t) == dataclasses.asdict(lc_j)
 
 
-@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "qwen2-vl-72b",
-                                  "whisper-large-v3"])
-def test_unported_families_load_and_raise(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for call in (lambda: tm.init_params(cfg, torch.Generator()),
-                 lambda: tm.forward({}, cfg, {"tokens": toks}),
-                 lambda: tm.prefill({}, cfg, {"tokens": toks}, {}),
-                 lambda: tm.init_cache(cfg, 1, 8)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 16c"):
-            call()
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_init_params_tree_matches_reference(arch):
+    """`init_params` builds the reference's tree (keys, shapes, dtypes:
+    the moe leaves (L, E, d, f), the audio family's ``encoder`` subtree),
+    and `convert.to_torch` carries the reference's params across leaf for
+    leaf, bit for bit."""
+    cfg_j = jconfigs.get_smoke_config(arch).replace(param_dtype="bfloat16")
+    cfg_t = tconfigs.get_smoke_config(arch).replace(param_dtype="bfloat16")
+    pj = jm.init_params(cfg_j, jax.random.PRNGKey(0))
+    pt = tm.init_params(cfg_t, torch.Generator().manual_seed(0))
+    shapes = lambda t: tree.leaves(tree.map(  # noqa: E731
+        lambda a: (tuple(a.shape), str(a.dtype).split(".")[-1]), t))
+    carried = convert.to_torch(pj)
+    assert shapes(pt) == shapes(carried)
+    assert tree.map(lambda a: None, pt) == tree.map(lambda a: None, carried)
+    for got, want in zip(tree.leaves(carried),
+                         jax.tree_util.tree_leaves(pj)):
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      np.asarray(want).view(np.int16))
+    if cfg_t.family == "moe":
+        m = cfg_t.moe
+        assert tuple(pt["blocks"]["moe"]["w_gate"].shape) == (
+            cfg_t.n_layers, m.n_experts, cfg_t.d_model, m.d_expert)
+    if cfg_t.family == "audio":
+        assert sorted(pt["encoder"]) == ["blocks", "final_norm"]
+        assert sorted(pt["blocks"]) == ["attn", "cross", "mlp", "norm1",
+                                        "norm2", "norm_x"]
 
 
 def test_make_token_dataset_bit_identical():
@@ -267,27 +290,50 @@ def _model(arch, **kw):
     return cfg_j, cfg_t, params, convert.to_torch(params)
 
 
-def _batch(vocab, B=2, S=40, seed=1):
+def _extras(cfg, B=2, seed=2):
+    """The family's inputs beside the tokens, from a numpy seed: patches
+    (B, n_patches, d) for the vlm family, frames (B, n_audio_frames, d)
+    for the audio family."""
+    rng = np.random.default_rng(seed)
+    n = {"vlm": ("patches", cfg.n_patches),
+         "audio": ("frames", cfg.n_audio_frames)}.get(cfg.family)
+    if n is None:
+        return {}
+    return {n[0]: rng.normal(size=(B, n[1], cfg.d_model)).astype(np.float32)}
+
+
+def _batch(vocab, B=2, S=40, seed=1, cfg=None):
     toks = t_tokens(seed, B, S, vocab)
-    return {"tokens": toks[:, :S], "targets": toks[:, 1:S + 1]}
+    b = {"tokens": toks[:, :S], "targets": toks[:, 1:S + 1]}
+    if cfg is not None:
+        b.update(_extras(cfg, B))
+    return b
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_forward_and_loss_match_reference(arch):
     """S = 40 over attn_chunk 16 takes the causal-skip branch without
-    flash; with flash every layer's attention is K6's plain version."""
+    flash; with flash every causal self-attention is K6's plain version.
+    The vlm family attends over 16 patches + 40 tokens; the audio
+    encoder's 24 frames and the cross-attention take the non-causal
+    q-chunk branch.  The MoE aux loss, summed over the layers, within
+    1e-5 relative (0 elsewhere)."""
     cfg_j, cfg_t, pj, pt = _model(arch)
-    b = _batch(cfg_j.vocab)
+    b = _batch(cfg_j.vocab, cfg=cfg_t)
     bj = {k: jnp.asarray(v) for k, v in b.items()}
     bt = {k: torch.as_tensor(v) for k, v in b.items()}
     for flash in (False, True):
         cj, ct = (c.replace(use_flash=flash) for c in (cfg_j, cfg_t))
         before = tfa.flash_attention.launches
-        lj, _ = jm.forward(pj, cj, bj)
+        lj, aux_j = jm.forward(pj, cj, bj)
         lt, aux = tm.forward(pt, ct, bt)
         assert tfa.flash_attention.launches == before      # CPU: plain
         _close(lt, lj, 1e-4)
-        assert float(aux) == 0.0
+        if cfg_t.family == "moe":
+            assert float(aux) > 0
+            assert abs(float(aux) - float(aux_j)) <= 1e-5 * float(aux_j)
+        else:
+            assert float(aux) == 0.0
         (loss_j, mj), (loss_t, mt) = (jm.loss_fn(pj, cj, bj),
                                       tm.loss_fn(pt, ct, bt))
         assert abs(float(loss_t) - float(loss_j)) <= 1e-5 * float(loss_j)
@@ -312,33 +358,45 @@ def test_loss_mask_matches_reference():
 def _jax_decode_loop(pj, cfg, tok, cache):
     """The reference's decode step with its layer scan written as a loop
     of its own block function (the scan refuses a carry whose dtype
-    changes, which a float32 cache under a bfloat16 model causes)."""
+    changes, which a float32 cache under a bfloat16 model causes): the
+    vlm position offset and the audio cross cache as its `decode_step`
+    passes them."""
     x = jl.embed_fwd(pj["embed"], tok, jnp.dtype(cfg.compute_dtype))
     pos = cache["pos"][None].repeat(x.shape[0], 0)[:, None]
+    if cfg.family == "vlm":
+        pos = pos - cfg.n_patches + int(max(cfg.patch_grid))
     angles = jm._angles_for(cfg, pos)
     kv = cache["kv"]
     ks, vs, idxs = [], [], []
     for i in range(cfg.n_layers):
         layer = jax.tree.map(lambda a: a[i], kv)
+        cross = None
+        if "cross" in cache:
+            cross = jax.tree.map(lambda a: a[i], cache["cross"])
         x, layer = jm._attn_block_with_cache(
             jax.tree.map(lambda a: a[i], pj["blocks"]), cfg, x, angles,
-            layer, decode=True)
+            layer, cross_cache=cross, decode=True)
         ks.append(layer["k"]), vs.append(layer["v"]), idxs.append(
             layer["idx"])
-    cache = {"pos": cache["pos"] + 1,
-             "kv": {"k": jnp.stack(ks), "v": jnp.stack(vs),
-                    "idx": jnp.stack(idxs)}}
+    cache = dict(cache, pos=cache["pos"] + 1,
+                 kv={"k": jnp.stack(ks), "v": jnp.stack(vs),
+                     "idx": jnp.stack(idxs)})
     x = jl.norm_fwd(cfg.norm, pj["final_norm"], x, cfg.norm_eps)
     return jl.unembed_fwd(pj["unembed"], x), cache
 
 
 def _serve_both(cfg_j, cfg_t, pj, pt, steps, cache_dtype, jax_decode):
     toks = tserve.prompts(cfg_j.vocab, 2, 20, seed=3)
-    cj = jm.init_cache(cfg_j, 2, 20 + steps, dtype=cache_dtype)
-    ct = tm.init_cache(cfg_t, 2, 20 + steps,
+    extras = _extras(cfg_t)
+    n = tserve.cache_length(cfg_t, 20, steps)
+    cj = jm.init_cache(cfg_j, 2, n, dtype=cache_dtype)
+    ct = tm.init_cache(cfg_t, 2, n,
                        dtype=getattr(torch, jnp.dtype(cache_dtype).name))
-    lj, cj = jm.prefill(pj, cfg_j, {"tokens": jnp.asarray(toks.numpy())}, cj)
-    lt, ct = tm.prefill(pt, cfg_t, {"tokens": toks}, ct)
+    bj = {k: jnp.asarray(v) for k, v in extras.items()}
+    bt = {k: torch.as_tensor(v) for k, v in extras.items()}
+    lj, cj = jm.prefill(pj, cfg_j, dict(bj, tokens=jnp.asarray(
+        toks.numpy())), cj)
+    lt, ct = tm.prefill(pt, cfg_t, dict(bt, tokens=toks), ct)
     logits = [(lt, lj)]
     tj = lj[:, -1].argmax(-1)[:, None].astype(jnp.int32)
     tt = lt[:, -1].argmax(-1)[:, None].to(torch.int32)
@@ -354,10 +412,12 @@ def _serve_both(cfg_j, cfg_t, pj, pt, steps, cache_dtype, jax_decode):
             torch.cat(out_t, 1).numpy(), logits, cj, ct)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_prefill_decode_match_reference(arch):
-    """Prompt 20 over attn_chunk 16 (causal-skip prefill), 8 greedy
-    decode steps: equal tokens, cache and logits within 1e-4."""
+    """Prompt 20 over attn_chunk 16 (causal-skip prefill; the vlm
+    family's 16 patches ahead of it), 8 greedy decode steps: equal
+    tokens, the KV cache (and the audio family's cross cache) and logits
+    within 1e-4, equal token counts and position."""
     cfg_j, cfg_t, pj, pt = _model(arch)
     tok_j, tok_t, logits, cj, ct = _serve_both(
         cfg_j, cfg_t, pj, pt, 8, jnp.float32, jm.decode_step)
@@ -366,9 +426,13 @@ def test_prefill_decode_match_reference(arch):
         _close(lt, lj, 1e-4)
     for key in ("k", "v"):
         _close(ct["kv"][key], cj["kv"][key], 1e-4)
+        if "cross" in cj:
+            _close(ct["cross"][key], cj["cross"][key], 1e-4)
+    assert sorted(ct) == sorted(cj)
     np.testing.assert_array_equal(ct["kv"]["idx"].numpy(),
                                   np.asarray(cj["kv"]["idx"]))
-    assert int(ct["pos"]) == int(cj["pos"]) == 28
+    patches = cfg_t.n_patches if cfg_t.family == "vlm" else 0
+    assert int(ct["pos"]) == int(cj["pos"]) == 28 + patches
 
 
 def test_sliding_window_ring_cache_decode():
@@ -415,6 +479,56 @@ def test_bfloat16_model_over_float32_cache_decode():
         _close(lt, lj, 5e-2)
 
 
+@pytest.mark.parametrize("arch", ("kimi-k2-1t-a32b", "whisper-large-v3"))
+def test_bfloat16_family_forward(arch):
+    """bfloat16 params and compute for a MoE and the encoder-decoder,
+    flash on and off, at `test_bfloat16_model_forward`'s limits."""
+    cfg_j, cfg_t, pj, pt = _model(arch, param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    b = _batch(cfg_j.vocab, cfg=cfg_t)
+    bj = {k: jnp.asarray(v) for k, v in b.items() if k != "targets"}
+    bt = {k: torch.as_tensor(v) for k, v in b.items() if k != "targets"}
+    for flash in (False, True):
+        cj, ct = (c.replace(use_flash=flash) for c in (cfg_j, cfg_t))
+        lj, _ = jm.forward(pj, cj, bj)
+        lt, _ = tm.forward(pt, ct, bt)
+        assert lt.dtype == torch.bfloat16
+        _close(lt, lj, 5e-2)
+        agree = (lt.argmax(-1).numpy() == np.asarray(lj.argmax(-1))).mean()
+        assert agree >= 0.9, agree
+
+
+@pytest.mark.parametrize("arch", ("kimi-k2-1t-a32b", "whisper-large-v3"))
+def test_bfloat16_family_over_float32_cache_decode(arch):
+    """What `launch.serve` runs, for a MoE and the encoder-decoder: a
+    bfloat16 model over a float32 cache (the cross cache too), held
+    against the reference's blocks called one by one.
+
+    The reference's prefill runs its layer scan compiled, where XLA
+    fuses bfloat16 chains, and the port rounds after every op; the MoE
+    block rounds four more bfloat16 stages (expert products, gating,
+    combine, shared expert) than a dense one.  The cached keys and
+    values carry those differences into every decode step, where the
+    kimi-k2 smoke model's logits move up to 8.2e-2 with the same experts
+    chosen on every token, so its logits are held within 1e-1; the
+    encoder-decoder's within the dense model's 5e-2."""
+    cfg_j, cfg_t, pj, pt = _model(arch, param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    tol = 1e-1 if cfg_t.family == "moe" else 5e-2
+    tok_j, tok_t, logits, cj, ct = _serve_both(
+        cfg_j, cfg_t, pj, pt, 8, jnp.float32, _jax_decode_loop)
+    assert logits[0][0].dtype == torch.bfloat16         # prefill
+    assert all(lt.dtype == torch.float32 for lt, _ in logits[1:])
+    assert ct["kv"]["k"].dtype == torch.float32
+    if "cross" in cj:
+        assert ct["cross"]["k"].dtype == torch.float32
+        for key in ("k", "v"):
+            _close(ct["cross"][key], cj["cross"][key], 5e-2)
+    assert (tok_t == tok_j).mean() >= 0.9
+    for lt, lj in logits:
+        _close(lt, lj, tol)
+
+
 def test_serve_driver_on_cpu():
     cfg = tconfigs.get_smoke_config("olmo-1b")
     params = tm.init_params(cfg, torch.Generator().manual_seed(0))
@@ -422,3 +536,59 @@ def test_serve_driver_on_cpu():
     res = tserve.serve(params, cfg, tserve.prompts(cfg.vocab, 2, 10), 5)
     assert res["tokens"].shape == (2, 5)
     assert res["prefill_s"] > 0 and res["decode_s"] > 0
+
+
+class _Drawn(Exception):
+    """Stops the reference's `launch.serve.main` once it has drawn its
+    requests."""
+
+
+@pytest.mark.parametrize("arch", ("qwen2-vl-72b", "whisper-large-v3"))
+def test_serve_extras_on_cpu(arch, monkeypatch):
+    """The vlm patches and audio frames: `request_batch` draws what the
+    reference's `launch.serve.main` draws (run until it asks for a cache,
+    with its numpy generator recorded), `cache_length` is its cache
+    length, and `serve` runs them on the CPU."""
+    from types import SimpleNamespace
+
+    from repro.launch import serve as jserve
+
+    draws, seen = [], {}
+
+    class Recorded:
+        def __init__(self, seed):
+            self.rng = np.random.default_rng(seed)
+
+        def __getattr__(self, name):
+            def draw(*args, **kwargs):
+                out = getattr(self.rng, name)(*args, **kwargs)
+                draws.append(out)
+                return out
+            return draw
+
+    def stop(cfg, B, cache_len, dtype):
+        seen["cache_len"] = cache_len
+        raise _Drawn
+
+    monkeypatch.setattr(jserve, "np", SimpleNamespace(
+        random=SimpleNamespace(default_rng=Recorded)))
+    monkeypatch.setattr(jserve, "init_params", lambda cfg, key: None)
+    monkeypatch.setattr(jserve, "init_cache", stop)
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", arch, "--batch",
+                                     "2", "--prompt-len", "12", "--gen",
+                                     "5"])
+    with pytest.raises(_Drawn):
+        jserve.main()
+    cfg = tconfigs.get_smoke_config(arch)
+    got = tserve.request_batch(cfg, 2, 12)
+    extra = "patches" if cfg.family == "vlm" else "frames"
+    assert sorted(got) == sorted(["tokens", extra]) and len(draws) == 2
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  draws[0].astype(np.int32))
+    np.testing.assert_array_equal(got[extra].numpy(),
+                                  draws[1].astype(np.float32))
+    assert tserve.cache_length(cfg, 12, 5) == seen["cache_len"]
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0))
+    res = tserve.serve(params, cfg, got.pop("tokens"), 5, **got)
+    assert res["tokens"].shape == (2, 5)
+    assert bool(torch.isfinite(res["last_logits"]).all())
