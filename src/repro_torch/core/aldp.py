@@ -10,7 +10,10 @@ stream instead (`kernels.upload_fused`).
 
 The arithmetic follows the reference's compiled engines, where XLA folds
 σS into the normal's √2 and contracts the clip's multiply with the noise
-add: upload = fma(x, scale, erf_inv(u) · f32(√2 · σS)).
+add: upload = fma(x, scale, erf_inv(u) · f32(√2 · σS)).  The tree-level
+`add_gaussian_noise` (the LLM round's noise, `core.fed_step`) draws leaf
+by leaf, `NOISE_CHUNK` counters at a time, so a 0.4 B-param tree needs
+the chain's temporaries of one chunk, not of the whole tree.
 """
 from __future__ import annotations
 
@@ -24,6 +27,11 @@ from .. import prng
 from .. import tree as tree_util
 from .numerics import fma_f32
 
+# Counters the noise chain draws at once: its int64 and float64
+# temporaries take about 155 bytes a counter (2.6 GB at 2^24 on an H100),
+# so about 0.65 GB at 2^22, whatever the tree's size.
+NOISE_CHUNK = 1 << 22
+
 
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
@@ -34,7 +42,10 @@ def clip_by_global_norm(tree, clip_s: float) -> Tuple[object, torch.Tensor]:
     """Eq. (8) clipping: tree / max(1, ‖tree‖₂/S). Returns (clipped, norm)."""
     nrm = global_norm(tree)
     scale = 1.0 / torch.clamp(nrm / clip_s, min=1.0)
-    return tree_util.map(lambda x: (x * scale).to(x.dtype), tree), nrm
+    # x · scale in float32, then the leaf's dtype, as jnp promotes a
+    # bfloat16 leaf against the float32 scale
+    return tree_util.map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
+                         tree), nrm
 
 
 def leaf_bits(keys, sizes: Sequence[int], device) -> torch.Tensor:
@@ -80,14 +91,42 @@ def _as_cohort(tree, key):
     return flat, key.reshape(-1, 2), sizes, back
 
 
+def _noised(x: torch.Tensor, z: torch.Tensor, c: np.float32) -> torch.Tensor:
+    """x + σS·n for erf_inv draws ``z``: fma(z, c, x) for a float32 leaf
+    (the compiled form); for a narrower leaf the noise is rounded to the
+    leaf's dtype before the add, as the reference's
+    ``x + σS·normal(...).astype(x.dtype)``."""
+    if x.dtype == torch.float32:
+        return fma_f32(z, c, x)
+    return x + (z * float(c)).to(x.dtype)
+
+
 def add_gaussian_noise(tree, key, sigma: float, clip_s: float):
-    """Adds N(0, (σS)²) to every coordinate: fma(n, f32(√2·σS), x) with n
-    the erf_inv draw (the compiled form).  ``key`` is one uint32 (2,) key,
-    or (C, 2) with a leading node axis on every leaf."""
-    flat, keys, sizes, back = _as_cohort(tree, key)
-    bits = leaf_bits(keys, sizes, flat.device)
-    return back(fma_f32(prng.erf_inv_draws(bits),
-                        prng.normal_scale(sigma * clip_s), flat))
+    """Adds N(0, (σS)²) to every coordinate.  ``key`` is one uint32 (2,)
+    key, or (C, 2) with a leading node axis on every leaf.  Leaf i of node
+    c draws from split(key_c, L)[i] over counters 0 .. size − 1 (the bits
+    of `leaf_bits`), `NOISE_CHUNK` of them at a time."""
+    key = np.asarray(key, np.uint32)
+    batched = key.ndim == 2
+    leaves = tree_util.leaves(tree)
+    words = prng.split(key.reshape(-1, 2), len(leaves))     # (C, L, 2)
+    c = prng.normal_scale(sigma * clip_s)
+    out = []
+    for i, x in enumerate(leaves):
+        flat = (x if batched else x[None]).reshape(words.shape[0], -1)
+        res = torch.empty_like(flat)
+        n = flat.shape[1]
+        for node in range(flat.shape[0]):
+            k1, k2 = (torch.tensor(int(w), dtype=torch.int64,
+                                   device=x.device) for w in words[node, i])
+            for lo in range(0, n, NOISE_CHUNK):
+                hi = min(lo + NOISE_CHUNK, n)
+                cnt = torch.arange(lo, hi, dtype=torch.int64,
+                                   device=x.device)
+                z = prng.erf_inv_draws(prng.bits_tensor(k1, k2, cnt))
+                res[node, lo:hi] = _noised(flat[node, lo:hi], z, c)
+        out.append(res.reshape(x.shape))
+    return tree_util.unflatten_like(tree, out)
 
 
 def per_leaf_norms(flat: torch.Tensor, sizes: Sequence[int]) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Device resolution and the port's numerics policy on the card."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -29,3 +31,20 @@ def resolve(device=None) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path")
     set_precision()
     return dev
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms while the block runs, the
+    caller's mode restored after.  Autograd's scatter-adds (an embedding
+    lookup's backward, a gather's) add with atomics on the card, in an
+    order that changes from run to run; under this mode they sort first.
+    Warning mode: cuBLAS on the one stream used here repeats its results
+    without a workspace setting, so it warns rather than raises."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)

@@ -30,7 +30,18 @@ blocks, zamba2's shared block) runs kernel K6
 cross-attention, `prefill` and `decode_step` use `models.attention`, as
 the reference does.  The Mamba blocks run the reference's chunked scans
 (`models.ssm`), which call neither K7 nor K8, as in the reference.
-``remat`` and ``seq_parallel`` change no forward value and are ignored.
+
+`forward` and `loss_fn` are differentiable with autograd (the training
+path, `core.fed_step`).  When params require grad, ``cfg.remat`` wraps
+each block body where the reference wraps it in `jax.checkpoint` (the
+encoder's and the decoder's blocks, the Mamba blocks; not zamba2's
+shared block) in `torch.utils.checkpoint.checkpoint`, which recomputes
+the block in the backward pass; the stacked layers are unbound once, so
+their grads stack back in one copy.  K6 has no backward kernel (the
+reference cannot differentiate through its Pallas kernel either), so a
+``cfg.use_flash`` forward over params that require grad raises rather
+than train without attention's gradients.  ``seq_parallel`` changes no
+value and is ignored.
 
 Serving with a float32 cache under a bfloat16 model (what
 `launch.serve` does) promotes as jnp does: a decode attention reads
@@ -46,9 +57,10 @@ cross caches are written in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import tree as tree_util
 from ..kernels.ops import attention_pallas
@@ -72,6 +84,33 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _layer(blocks: dict, i: int) -> dict:
     return tree_util.map(lambda a: a[i], blocks)
+
+
+def _layers(blocks: dict, n: int) -> List[dict]:
+    """Every layer of a stack as views, from one `unbind` per leaf (whose
+    backward stacks the layers' grads in one copy)."""
+    parts = tree_util.map(lambda a: a.unbind(0), blocks)
+    return [tree_util.map(lambda t: t[i], parts) for i in range(n)]
+
+
+def _trains(params: dict, cfg: ModelConfig) -> bool:
+    """Will autograd record this forward?  Refuses K6 if so."""
+    trains = torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_util.leaves(params))
+    if trains and cfg.use_flash:
+        raise RuntimeError(
+            "use_flash=True under autograd: kernel K6 "
+            "(kernels.flash_attention) has no backward kernel, so "
+            "attention's gradients would be lost; train with "
+            "use_flash=False (plain attention, as the reference trains)")
+    return trains
+
+
+def _block(fn: Callable, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward pass when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _stacked(init, n: int) -> dict:
@@ -289,17 +328,18 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict):
     return x, _angles_for(cfg, _positions(B, S_text, x.device)), S_text
 
 
-def _encode_audio(params: dict, cfg: ModelConfig, frames: torch.Tensor
-                  ) -> torch.Tensor:
+def _encode_audio(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+                  remat: bool = False) -> torch.Tensor:
     """The audio encoder: non-causal blocks over the frames (RoPE over
     the frame index; no K6), then its final norm."""
     B, Fa = frames.shape[:2]
     angles = _angles_for(cfg, _positions(B, Fa, frames.device))
     enc = params["encoder"]
+    body = lambda p, h: _transformer_block_fwd(  # noqa: E731
+        p, cfg, h, angles, causal=False, window=0)[0]
     x = frames
-    for i in range(cfg.encoder_layers):
-        x, _ = _transformer_block_fwd(_layer(enc["blocks"], i), cfg, x,
-                                      angles, causal=False, window=0)
+    for p in _layers(enc["blocks"], cfg.encoder_layers):
+        x = _block(body, remat, p, x)
     return norm_fwd(cfg.norm, enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -318,21 +358,24 @@ def forward(params: dict, cfg: ModelConfig, batch: dict
     """Logits over the text positions (B, S, V) and the MoE aux loss
     summed over the layers (0 for the other families)."""
     _check_family(cfg)
+    remat = _trains(params, cfg) and cfg.remat
     x, angles, S_text = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in _ATTENTION:
         enc_out = None
         if cfg.family == "audio":
             enc_out = _encode_audio(
-                params, cfg, batch["frames"].to(dtype_of(cfg.compute_dtype)))
-        for i in range(cfg.n_layers):
-            x, a = _transformer_block_fwd(
-                _layer(params["blocks"], i), cfg, x, angles, causal=True,
-                window=cfg.sliding_window, enc_out=enc_out)
+                params, cfg, batch["frames"].to(dtype_of(cfg.compute_dtype)),
+                remat)
+        body = lambda p, h: _transformer_block_fwd(  # noqa: E731
+            p, cfg, h, angles, causal=True, window=cfg.sliding_window,
+            enc_out=enc_out)
+        for p in _layers(params["blocks"], cfg.n_layers):
+            x, a = _block(body, remat, p, x)
             aux = aux + a
         x = x[:, -S_text:]
     else:
-        x = _mamba_forward(params, cfg, x, angles)
+        x = _mamba_forward(params, cfg, x, angles, remat)
     return _head(params, cfg, x), aux
 
 
@@ -356,13 +399,15 @@ def _attn_after(cfg: ModelConfig, start: int, size: int) -> bool:
 
 
 def _mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                   angles) -> torch.Tensor:
+                   angles, remat: bool) -> torch.Tensor:
     """The ssm and hybrid stacks: the Mamba blocks group by group, the
     hybrid family's shared attention block after each full group (a
     dense block: its aux loss is 0)."""
+    body = lambda p, h: _mamba_block_fwd(p, cfg, h)[0]  # noqa: E731
+    layers = _layers(params["blocks"], cfg.n_layers)
     for start, size in _hybrid_groups(cfg):
-        for i in range(start, start + size):
-            x = _mamba_block_fwd(_layer(params["blocks"], i), cfg, x)[0]
+        for p in layers[start:start + size]:
+            x = _block(body, remat, p, x)
         if _attn_after(cfg, start, size):
             x = _transformer_block_fwd(params["shared_attn"], cfg, x,
                                        angles, causal=True,

@@ -371,6 +371,9 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.obs.analysis' in sys.modules\n"
         "assert 'repro_torch.checkpointing.checkpoint' in sys.modules\n"
         "assert 'repro_torch.models.moe' in sys.modules\n"
+        "for m in ('optim.optimizers', 'core.fed_step', 'launch.steps', "
+        "'launch.train'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env,

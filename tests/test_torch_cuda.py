@@ -1105,3 +1105,92 @@ def _flat(t, prefix=""):
             out.update(_flat(t[k], f"{prefix}/{k}"))
         return out
     return {prefix: t}
+
+
+# ---------------------------------------------------------------------------
+# LLM training: the paper's round on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_lm(**kw):
+    return get_smoke_config("qwen1.5-0.5b").replace(
+        n_layers=2, d_model=64, d_ff=128, vocab=64, attn_chunk=8, **kw)
+
+
+def _lm_batches(cfg, lead, seed):
+    from repro_torch.data import make_token_dataset
+    from repro_torch.launch.train import make_batches
+
+    data = make_token_dataset(0, 128, 16, cfg.vocab)
+    return make_batches(cfg, data, lead, 16, np.random.default_rng(seed))
+
+
+def test_tiny_fed_round_on_the_card_matches_the_cpu(cuda):
+    """One `fed_train_step` (4 nodes x 2 local steps, σ 1e-3, Alg. 2 at
+    s = 50) on the card and on the CPU from the same params and batches:
+    params within 1e-6 (the CPU tests hold the port to the reference
+    there), accuracies, the mask and n_normal equal; the node's noise is
+    the same threefry chain on both devices.  A second card run repeats
+    the first bit for bit (`device.deterministic`)."""
+    from repro_torch.core.fed_step import FedStepConfig
+    from repro_torch.launch.steps import make_step
+
+    cfg = _tiny_lm(remat=True)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    nb, eb = _lm_batches(cfg, (4, 2, 4), 0), _lm_batches(cfg, (4,), 1)
+    step = make_step(cfg, "fed_train", fcfg=FedStepConfig(
+        n_nodes=4, local_steps=2, lr=0.5, sigma=1e-3, detect_s=50.0))
+    key = np.array([0, 7], np.uint32)
+    out = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        to = lambda t: tree.map(lambda x: x.to(dev), t)  # noqa: E731
+        p, m = step(to(params), to(nb), to(eb), key)
+        if dev in out:
+            for a, b in zip(tree.leaves(p), tree.leaves(out[dev][0])):
+                assert torch.equal(a, b)
+        out[dev] = (p, m)
+    (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+    for a, b in zip(tree.leaves(pg), tree.leaves(pc)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-6
+    for k in ("node_accuracies", "n_normal", "detect_threshold"):
+        assert torch.equal(mg[k].cpu(), mc[k]), k
+
+
+def test_use_flash_training_raises_on_the_card(cuda):
+    from repro_torch.launch.steps import make_step
+
+    cfg = _tiny_lm(use_flash=True)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    batch = tree.map(lambda x: x.cuda(), _lm_batches(cfg, (2,), 0))
+    fa.flash_attention.launches = 0
+    with pytest.raises(RuntimeError, match="K6.*no backward kernel"):
+        make_step(cfg, "plain_train")(params, batch)
+    assert fa.flash_attention.launches == 0
+
+
+def test_tree_noise_runs_in_bounded_memory(cuda):
+    """`core.aldp.add_gaussian_noise` over one 10^8-element float32 leaf
+    holds the output and one chunk's chain (about 155 bytes a counter,
+    0.65 GB at 2^22 counters), not the whole leaf's int64 and float64
+    temporaries (more than 8 GB): peak above the input within the output
+    plus 2 GB.  The first and last chunks' draws equal the same counters
+    drawn alone."""
+    from repro_torch import prng
+    from repro_torch.core import aldp
+
+    n = 100_000_000
+    x = torch.zeros(n, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    key = np.array([3, 9], np.uint32)
+    out = aldp.add_gaussian_noise({"w": x}, key, 0.5, 1.0)["w"]
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= 4 * n + 2 * 2**30, extra
+    k1, k2 = (torch.tensor(int(w), dtype=torch.int64, device="cuda")
+              for w in prng.split(key, 1)[0])
+    c = prng.normal_scale(0.5)
+    for lo, hi in ((0, 1000), (n - 1000, n)):
+        cnt = torch.arange(lo, hi, dtype=torch.int64, device="cuda")
+        z = prng.erf_inv_draws(prng.bits_tensor(k1, k2, cnt))
+        assert torch.equal(out[lo:hi], z * float(c))
