@@ -5,7 +5,9 @@ framework (ALDPFL and its synchronous sibling, through the same
 `api.run(api.compile_plan(spec))` entry point, with the network layer,
 the observability layer `obs` and the simulation service `sim` with its
 checkpoints) and the model zoo's six families (`models`,
-`launch.serve`) on one NVIDIA GPU, with hand-written CUDA kernels
+`launch.serve`, `launch.train`) on one NVIDIA GPU — the fleet also over
+the ranks of a `torch.distributed` group (`fleet.mesh`) — with
+hand-written CUDA kernels
 (`kernels/`, sources in `csrc/`) in place of every Pallas kernel of the
 reference.  It imports
 torch, numpy and the standard library only (and `ml_dtypes` when

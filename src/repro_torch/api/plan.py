@@ -58,6 +58,14 @@ class ExperimentPlan:
     stages: Tuple[str, ...]     # descriptive upload/aggregate pipeline
     net_codec: Optional[str] = None  # repro.net wire codec; None = analytic
 
+    def describe(self) -> str:
+        placement = ("sequential reference loop" if self.engine == "sequential"
+                     else "fleet engine"
+                     + (f" over {self.mesh_devices or 'all'}-device mesh"
+                        if self.mesh_devices is not None else ""))
+        return (f"{self.spec.schedule.kind} schedule on {placement}: "
+                + " -> ".join(self.stages))
+
 
 def _require(cond: bool, msg: str) -> None:
     if not cond:
@@ -506,5 +514,3 @@ def require_ported(spec: ExperimentSpec) -> None:
         missing("topology.kind='sequential' (the reference loops)",
                 "the sequential reference loops are parity oracles of the "
                 "JAX package only")
-    if topo.kind == "mesh":
-        missing("topology.kind='mesh'", "'Multi-device: torch.distributed'")

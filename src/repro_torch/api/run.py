@@ -10,7 +10,10 @@ bytes (``bytes_source="encoded"``) and `RunReport.net` the trace
 summary.  A spec with ``obs.enabled`` runs inside a tracer scope (events,
 record streams, health probes); a spec with a `SimSpec` runs through
 `sim.SimService`.  Everything runs on ``device`` ("cuda" unless the
-caller passes "cpu").
+caller passes "cpu").  A plan with ``topology.kind="mesh"`` shards the
+node axis over the ranks of the initialised default `torch.distributed`
+group (`fleet.FleetMesh`): every rank runs `run` in its own process and
+returns the same `RunReport`, and only rank 0 writes files.
 """
 from __future__ import annotations
 
@@ -89,8 +92,14 @@ class _ObsSession:
         self._last_records_done = 0
         if not self.enabled:
             return
+        if not fleet.mesh.is_writer():
+            # a mesh rank other than 0 traces in memory only: rank 0
+            # writes the run's files
+            o = dataclasses.replace(o, events_jsonl=None, chrome_trace=None,
+                                    records_jsonl=None)
+            self._chrome_path = None
         header = {"schema_version": SCHEMA_VERSION, "mode": plan.mode,
-                  "engine": plan.engine, "spec": plan.spec.to_dict()}
+                  "engine": engine_name(plan), "spec": plan.spec.to_dict()}
         sinks = []
         if o.chrome_trace:
             self._mem = _obs.MemorySink()
@@ -192,11 +201,22 @@ class _StreamingHistory(list):
 # engine construction
 # ---------------------------------------------------------------------------
 
-def make_engine(plan: ExperimentPlan, population: Population, device=None):
+def engine_name(plan: ExperimentPlan) -> str:
+    """The report's engine: ``fleet-mesh`` on a mesh topology."""
+    return "fleet-mesh" if plan.mesh_devices is not None else plan.engine
+
+
+def make_engine(plan: ExperimentPlan, population: Population, device=None,
+                mesh: Optional["fleet.FleetMesh"] = None):
     """Build the fleet engine a plan selects (sequential PRNG chain,
     reference/pallas backend, the population's profile/sampler, the
-    network transport when the spec names a codec)."""
+    network transport when the spec names a codec).  A mesh topology
+    builds `fleet.FleetMesh.create(plan.mesh_devices or None)` over the
+    default process group; ``mesh`` overrides it (the scenario builders
+    pass a prebuilt one)."""
     spec = plan.spec
+    if mesh is None and plan.mesh_devices is not None:
+        mesh = fleet.FleetMesh.create(plan.mesh_devices or None)
     common = dict(
         local_steps=spec.train.local_steps, batch_size=spec.train.batch_size,
         lr=spec.train.lr, alpha=spec.schedule.alpha,
@@ -224,7 +244,7 @@ def make_engine(plan: ExperimentPlan, population: Population, device=None):
         return fleet.FleetEngine(
             *args, fleet.FleetConfig(**common), profile=population.profile,
             sampler=population.sampler or fleet.FullParticipation(),
-            net=net, device=device, attack=attack)
+            mesh=mesh, net=net, device=device, attack=attack)
     bpn = fleet_stages.bytes_per_node(n_params,
                                       spec.compression.sparsify_ratio)
     cfg = fleet.AsyncFleetConfig(
@@ -236,8 +256,8 @@ def make_engine(plan: ExperimentPlan, population: Population, device=None):
         detect_warmup=spec.defense.detect_warmup,
         detect_window=plan.detect_window)
     return fleet.AsyncFleetEngine(*args, cfg, profile=population.profile,
-                                  sampler=population.sampler, net=net,
-                                  device=device, attack=attack)
+                                  sampler=population.sampler, mesh=mesh,
+                                  net=net, device=device, attack=attack)
 
 
 # ---------------------------------------------------------------------------
@@ -337,8 +357,7 @@ class _AsyncFleetStepper:
     def virtual_time(self) -> float:
         """The earliest pending arrival (reads the clocks off the card:
         called only where a `pre_step` hook is installed)."""
-        arr = self.eng.state.next_arrival.cpu().numpy()
-        return float(arr.astype(np.float64)[:self.n].min())
+        return float(self.eng.arrival_clocks()[:self.n].min())
 
     def step(self) -> None:
         state, eng = self.state, self.eng
@@ -507,7 +526,7 @@ def run(plan: ExperimentPlan, population: Optional[Population] = None,
     comm = sum(r.comm_time for r in records)
     comp = sum(r.comp_time for r in records)
     report = RunReport(
-        mode=plan.mode, engine=plan.engine, records=list(records),
+        mode=plan.mode, engine=engine_name(plan), records=list(records),
         kappa=async_update.communication_efficiency(comm, comp),
         epsilon_spent=(state.accountant.epsilon(plan.spec.privacy.delta)
                        if state.accountant is not None else 0.0),

@@ -276,8 +276,9 @@ class Topology:
     ``kind="sequential"`` — the per-node/per-arrival reference loops
     (the seed implementation; slow, bit-exact ground truth);
     ``kind="single"``     — the cohort/window-batched fleet engines on one
-    device; ``kind="mesh"`` — node axis sharded over ``devices`` local
-    devices via `fleet.FleetMesh` (None = all local devices).
+    device; ``kind="mesh"`` — node axis sharded over ``devices`` ranks
+    of the default `torch.distributed` group via `fleet.FleetMesh`
+    (None = its world size).
     """
     kind: str = "single"
     devices: Optional[int] = None

@@ -69,8 +69,7 @@ def detect(accuracies: torch.Tensor, s: float
     falling back to ``>=`` when the strict test rejects everyone."""
     thr = detection_threshold(accuracies, s)
     mask = accuracies > thr
-    if not bool(mask.any()):
-        mask = accuracies >= thr
+    mask = torch.where(mask.any(), mask, accuracies >= thr)
     return mask, thr
 
 

@@ -1,6 +1,6 @@
 """AsyncFleetEngine: the paper's asynchronous scheme, one window at a time.
 
-Port of `repro.fleet.async_engine` for one device.  Per-node virtual
+Port of `repro.fleet.async_engine`.  Per-node virtual
 clocks and dispatched models live on the device; each window
 
   1. selects every pending arrival inside [t0, t0 + window);
@@ -37,6 +37,14 @@ occupancy each arrival was judged against, which the host fold control
 returns when traced) and the window metrics; with ``stage_timings`` its
 stages are timed, each fenced on the card.  Tracing changes no
 arithmetic of the fold.
+
+With a `mesh.FleetMesh` every per-node tensor is sharded over the ranks
+of a `torch.distributed` group and the window runs as
+`_build_window_sharded`: the cohort rows are gathered from their owners,
+each rank trains its block of the cohort, the per-arrival models are
+all-gathered and folded replicated (the control scan on every rank's
+host, the params through K2), and the redispatched rows are scattered
+back to their owners.
 """
 from __future__ import annotations
 
@@ -50,12 +58,12 @@ import torch
 from .. import prng
 from .. import tree as tree_util
 from ..core import async_update, detection
-from ..device import resolve
 from ..obs import (STALENESS_EDGES, WINDOW_SIZE_EDGES, get_tracer,
                    timed_stage)
+from . import mesh as mesh_lib
 from . import stages
-from .engine import ClientSampler, FleetConfig, NodeProfile
-from .mesh import MeshStateIO
+from .engine import ClientSampler, FleetConfig, NodeProfile, check_mesh
+from .mesh import FleetMesh, MeshStateIO
 from .state import gather_nodes, init_async_fleet_state
 
 
@@ -235,19 +243,24 @@ def buffered_fold(cfg: AsyncFleetConfig, params, version, ring, count,
 
 class AsyncFleetEngine(MeshStateIO):
     """Event-driven async FEL over a stacked node fleet, one window per
-    step, on one device (``device="cuda"`` by default).  ``sampler``
-    models churn: an unavailable node loses its in-window upload (no mix,
-    no detection entry) but is redispatched.  ``net`` is an optional
-    `net.NetSim`, ``tracer`` an `obs.Tracer` (defaults to the
-    process-global one at construction), ``attack`` an optional
-    `stages.AttackPlan`."""
+    step (``device="cuda"`` by default).  ``sampler`` models churn: an
+    unavailable node loses its in-window upload (no mix, no detection
+    entry) but is redispatched.  ``mesh`` is an optional `FleetMesh`,
+    ``net`` an optional `net.NetSim`, ``tracer`` an `obs.Tracer`
+    (defaults to the process-global one at construction), ``attack`` an
+    optional `stages.AttackPlan`.  On a mesh the cohort bucket is rounded
+    up to a shard multiple: with ``key_mode="sequential"`` (the masked
+    chain advances on in-window slots only) the key streams are the
+    unsharded engine's."""
 
     def __init__(self, init_params, loss_fn: Callable, acc_fn: Callable,
                  node_data, test_data, cloud_test, cfg: AsyncFleetConfig,
                  profile: Optional[NodeProfile] = None,
-                 sampler: Optional[ClientSampler] = None, net=None,
+                 sampler: Optional[ClientSampler] = None,
+                 mesh: Optional[FleetMesh] = None, net=None,
                  device=None, tracer=None, attack=None):
-        self.device = resolve(device)
+        self.device = check_mesh(mesh, device)
+        self.mesh = mesh
         self.cfg = cfg
         # the tracer is bound at construction: whether the fold control
         # returns the detection audit is decided here
@@ -261,8 +274,9 @@ class AsyncFleetEngine(MeshStateIO):
         (self.data, self.n_nodes, self.test_data, self.cloud_test,
          self.profile, self.n_params) = stages.init_engine_common(
             self.params, node_data, test_data, cloud_test, profile,
-            self.device)
+            self.device, mesh)
         self.sampler = sampler
+        self.n_pad = mesh.padded(self.n_nodes) if mesh else self.n_nodes
         self._bpn = stages.bytes_per_node(self.n_params, cfg.sparsify_ratio)
         # float64 host copies feed window selection and the records; the
         # f32 device copies feed the clock update
@@ -274,14 +288,21 @@ class AsyncFleetEngine(MeshStateIO):
         if self._window_len <= 0:
             raise ValueError(f"window must be positive, got "
                              f"{self._window_len}")
+        # padding rows never arrive (+inf clocks) and never participate
+        pad = self.n_pad - self.n_nodes
+        self._comm_pad = np.concatenate([self._comm_s, np.zeros(pad)])
+        self._comp_pad = np.concatenate([self._comp_s, np.full(pad, np.inf)])
+        first_arrival = (self._comp_pad if mesh is None
+                         else mesh_lib.my_block(self._comp_pad, mesh))
         self.state = init_async_fleet_state(
-            self.params, self.n_nodes, prng.PRNGKey(cfg.seed),
-            first_arrival=self._comp_s, detect_window=cfg.detect_window,
+            self.params, len(first_arrival), prng.PRNGKey(cfg.seed),
+            first_arrival=first_arrival, detect_window=cfg.detect_window,
             trust=cfg.trust_on,
             throttle=attack is not None and attack.needs_throttle)
         self._window_idx = 0
         self.history: List[AsyncWindowRecord] = []
-        self._window_fn = self._build_window()
+        self._window_fn = (self._build_window() if mesh is None
+                           else self._build_window_sharded())
 
     # -- one arrival window ---------------------------------------------------
     def _build_window(self):
@@ -391,20 +412,167 @@ class AsyncFleetEngine(MeshStateIO):
 
         return window_fn
 
-    def select_window(self, max_arrivals: Optional[int] = None
+    # -- the sharded window: every rank trains its block of the cohort ----
+    def _build_window_sharded(self):
+        """The arrival window over the node mesh, run by every rank.
+
+        Per window (cohort C, ranks D):
+          1. gather the C cohort rows (dispatched params, residuals,
+             clocks, versions, data shards) out of the node-sharded
+             tensors, replicated on every rank (`mesh.gather_rows`);
+          2. each rank trains its C/D block of the cohort (local SGD ->
+             DGC -> ALDP -> cloud evaluation), with no communication;
+          3. all-gather the per-arrival models, residuals and accuracies
+             back to cohort order and fold replicated: the control scan
+             on every rank's host (the same bits in, the same verdicts
+             out), the params through K2 (or the buffered mix);
+          4. scatter the redispatched models, residuals, versions and
+             fresh clocks back to the rank that owns each node.
+
+        The replicated cohort of step 1 is bounded by the power-of-two
+        arrival bucket, not the fleet, so a rank holds O(N/D + C) rows."""
+        cfg, mesh = self.cfg, self.mesh
+        acc_fn = self.acc_fn
+        cloud_x, cloud_y = self.cloud_test
+        local_train = stages.make_local_train(self.loss_fn, cfg.local_steps,
+                                              cfg.lr, cfg.batch_size)
+        dev = self.device
+        comp_s = torch.as_tensor(self._comp_pad.astype(np.float32),
+                                 device=dev)
+        sizes = self.data.sizes
+        need_nnz = self.net is not None     # byte-accurate pricing only
+        fold = (sequential_fold if cfg.mixing == "sequential"
+                else buffered_fold)
+        attack_stage = stages.make_delta_attack(self.attack)
+        mal_full = None
+        if attack_stage is not None:
+            mal = np.zeros(self.n_pad, bool)
+            mal[:self.n_nodes] = self.attack.malicious
+            mal_full = torch.as_tensor(mal, device=dev)
+        adapt_scale = self.attack.adapt_poison_scale if self.attack else 1.0
+        need_audit = self._need_audit
+
+        def window_fn(params, state, order, proc, avail, up_s):
+            """As `_build_window`'s; ``order`` is a shard multiple long."""
+            # 1. cohort gather: node-sharded -> replicated (C, ...) rows
+            t_arr = mesh_lib.gather_rows(state.next_arrival, order, mesh)
+            vdisp_c = mesh_lib.gather_rows(state.dispatched_version, order,
+                                           mesh).cpu().numpy()
+            disp_c = mesh_lib.gather_rows_tree(state.dispatched, order, mesh)
+            res_c = mesh_lib.gather_rows_tree(state.residuals, order, mesh)
+            xg = mesh_lib.gather_rows(self.data.x, order, mesh)
+            yg = mesh_lib.gather_rows(self.data.y, order, mesh)
+            thr_c = (mesh_lib.gather_rows(state.throttle, order, mesh)
+                     if state.throttle is not None else None)
+            trust_c = (mesh_lib.gather_rows(state.trust, order, mesh)
+                       if state.trust is not None else None)
+            if cfg.key_mode == "sequential":
+                chain_key, k1s, k2s = prng.chain_node_keys_masked(
+                    state.chain_key, proc)
+            else:
+                chain_key, k1s, k2s = prng.parallel_node_keys(
+                    state.chain_key, order.shape[0])
+
+            # 2. this rank's block of the cohort through the pipeline
+            blk = lambda t: mesh_lib.my_block_tree(t, mesh)  # noqa: E731
+            disp_b, order_b = blk(disp_c), blk(order)
+            bidx = stages.batch_indices(blk(k1s), sizes[order_b],
+                                        cfg.local_steps, cfg.batch_size, dev)
+            local = local_train(disp_b, blk(xg), blk(yg),
+                                torch.arange(order_b.shape[0], device=dev),
+                                bidx)
+            deltas = tree_util.map(lambda l, d: l - d.to(l.dtype), local,
+                                   disp_b)
+            if attack_stage is not None:
+                deltas = attack_stage(
+                    deltas, mal_full.index_select(
+                        0, torch.as_tensor(order_b, device=dev)),
+                    blk(thr_c) if thr_c is not None else None)
+            deltas, res_b, nnz_b = stages.upload_pipeline(
+                cfg, deltas, blk(res_c), blk(k2s), need_nnz=need_nnz)
+            omegas_b, accs_b = stages.rebuild_and_evaluate(
+                acc_fn, disp_b, deltas, cloud_x, cloud_y)
+
+            # 3. the arrival set, gathered; the fold, replicated
+            omegas = mesh_lib.all_gather_tree(omegas_b, mesh)
+            res_c = mesh_lib.all_gather_tree(res_b, mesh)
+            accs = mesh_lib.all_gather(accs_b.to(torch.float32), mesh)
+            arrived = proc & avail
+            params, ctl, p_seq = fold(
+                cfg, params, state.version, state.acc_ring, state.acc_count,
+                omegas, accs, vdisp_c, arrived, trust_c, need_audit)
+
+            # 4. redispatch: each processed row back to its owner
+            if p_seq is None:       # buffered: the post-window model
+                p_seq = tree_util.map(lambda p: p[None].expand(
+                    (order.shape[0],) + tuple(p.shape)), params)
+            mesh_lib.scatter_rows_tree(state.dispatched, order, p_seq, proc,
+                                       mesh)
+            mesh_lib.scatter_rows_tree(state.residuals, order, res_c, proc,
+                                       mesh)
+            mesh_lib.scatter_rows(state.dispatched_version, order,
+                                  torch.as_tensor(ctl.v_seq, device=dev),
+                                  proc, mesh)
+            order_t = torch.as_tensor(order, device=dev)
+            t_next = (t_arr + torch.as_tensor(up_s, device=dev)
+                      + comp_s.index_select(0, order_t))
+            mesh_lib.scatter_rows(state.next_arrival, order, t_next, proc,
+                                  mesh)
+            if trust_c is not None or thr_c is not None:
+                arr_t = torch.as_tensor(arrived, device=dev)
+                rej_t = torch.as_tensor(ctl.rej, device=dev) & arr_t
+            if trust_c is not None:
+                t_new = detection.trust_update(trust_c, arr_t & ~rej_t,
+                                               arr_t, cfg.trust_eta)
+                mesh_lib.scatter_rows(state.trust, order, t_new, proc, mesh)
+            if thr_c is not None:
+                th_new = stages.adaptive_throttle_update(
+                    thr_c, rej_t, arr_t, adapt_scale)
+                mesh_lib.scatter_rows(state.throttle, order, th_new, proc,
+                                      mesh)
+            new_state = dataclasses.replace(
+                state, chain_key=chain_key, version=ctl.version,
+                acc_ring=ctl.ring, acc_count=ctl.count)
+            metrics = {
+                "n_rejected": int((ctl.rej & arrived).sum()),
+                "max_staleness": int(np.where(arrived, ctl.taus, 0).max())}
+            if need_nnz:
+                metrics["nnz"] = mesh_lib.all_gather(nnz_b, mesh).cpu() \
+                    .numpy()
+            if ctl.audit is not None:
+                metrics["audit"] = dict(ctl.audit, rej=ctl.rej,
+                                        taus=ctl.taus)
+            return params, new_state, metrics
+
+        return window_fn
+
+    def arrival_clocks(self) -> np.ndarray:
+        """Every node's next arrival (float64 host copy over the padded
+        fleet; gathered from every rank on a mesh, where every rank must
+        call it)."""
+        return self._whole(self.state.next_arrival).cpu().numpy().astype(
+            np.float64)
+
+    def select_window(self, max_arrivals: Optional[int] = None,
+                      clocks: Optional[np.ndarray] = None
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """(order, proc): node ids sorted by (arrival, id) and in-window
         flags, truncated to the smallest power-of-two bucket (floored at
-        16) that covers the in-window arrivals."""
-        na = self.state.next_arrival.cpu().numpy().astype(np.float64)
-        order = np.lexsort((np.arange(self.n_nodes), na))
+        16) that covers the in-window arrivals, on a mesh rounded up to a
+        shard multiple.  Padding rows carry +inf clocks: they sort last
+        and are never in-window."""
+        na = self.arrival_clocks() if clocks is None else clocks
+        order = np.lexsort((np.arange(self.n_pad), na))
         proc = na[order] < na[order[0]] + self._window_len
         if max_arrivals is not None:
             proc &= np.cumsum(proc) <= max_arrivals
         c = 16
         while c < int(proc.sum()):
             c *= 2
-        c = min(c, self.n_nodes)
+        c = min(c, self.n_pad)
+        if self.mesh is not None:
+            d = self.mesh.n_devices
+            c = min(self.n_pad, ((c + d - 1) // d) * d)
         return order[:c], proc[:c]
 
     def run_window(self, max_arrivals: Optional[int] = None,
@@ -416,14 +584,12 @@ class AsyncFleetEngine(MeshStateIO):
         span = tr.span("window", window=w)
         span.__enter__()
         with timed_stage(tr, "window.select", window=w):
-            order, proc = self.select_window(max_arrivals)
-        t_arr = self.state.next_arrival.cpu().numpy().astype(
-            np.float64)[order]
+            clocks = self.arrival_clocks()
+            order, proc = self.select_window(max_arrivals, clocks)
+        t_arr = clocks[order]
         if self.sampler is not None:
             idx_s, up = self.sampler.cohort(w, self.n_nodes)
-            mask = np.zeros(self.n_nodes, bool)
-            mask[np.asarray(idx_s)[np.asarray(up, bool)]] = True
-            avail = mask[order]
+            avail = self._participation_mask(idx_s, up)[order]
         else:
             avail = np.ones(order.size, bool)
         sel = order[proc]
@@ -437,7 +603,7 @@ class AsyncFleetEngine(MeshStateIO):
             up_host = np.zeros(order.size, np.float64)
             up_host[proc] = draw.transfer_s
         else:
-            up_host = self._comm_s[order]
+            up_host = self._comm_pad[order]
         with timed_stage(tr, "window.device", window=w) as stage:
             self.params, self.state, m = self._window_fn(
                 self.params, self.state, order, proc, avail,
@@ -518,6 +684,14 @@ class AsyncFleetEngine(MeshStateIO):
     def run(self, windows: int) -> List[AsyncWindowRecord]:
         for _ in range(windows):
             self.run_window()
+        return self.history
+
+    def run_arrivals(self, total: int) -> List[AsyncWindowRecord]:
+        """Process exactly ``total`` arrivals, truncating the last
+        window."""
+        done = 0
+        while done < total:
+            done += self.run_window(max_arrivals=total - done).n_processed
         return self.history
 
     def global_accuracy(self) -> float:

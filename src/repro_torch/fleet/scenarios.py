@@ -5,8 +5,8 @@ population (size, adversary fraction, stragglers, churn, sampling,
 privacy and compression knobs) and `to_spec()` emits the
 `api.ExperimentSpec` it denotes, the same JSON as the reference's.  The
 builders run ``compile_plan`` -> ``materialize`` -> ``make_engine`` on
-``device`` (CUDA unless the caller passes "cpu").  A ``mesh`` builder
-argument raises: the mesh engines are ROADMAP.md item 15.
+``device`` (CUDA unless the caller passes "cpu"); a ``mesh`` builder
+argument (a `mesh.FleetMesh`) shards the node axis over its ranks.
 """
 from __future__ import annotations
 
@@ -66,9 +66,7 @@ class Scenario:
 
         ``kind`` is the schedule ("sync" | "async" | "buffered"); None
         picks "sync", or the scenario's own async mixing when it declares
-        async knobs.  ``mesh_devices`` selects a mesh topology (the spec
-        is the reference's; the port's `compile_plan` refuses it until
-        ROADMAP.md item 15, 'Multi-device: torch.distributed').
+        async knobs.  ``mesh_devices`` selects a mesh topology.
         """
         from ..api import spec as s
         from ..api.window import AutoWindow, FixedWindow
@@ -160,23 +158,20 @@ def _build(sc: Scenario, kind: str, seed: int, sampler, backend, mesh,
     """Scenario -> spec -> plan -> engine, with a sampler override."""
     from .. import api
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh is not ported to repro_torch yet (ROADMAP.md: "
-            "'Multi-device: torch.distributed')")
     spec = sc.to_spec(kind=kind, seed=seed, backend=backend)
     plan = api.compile_plan(spec)
     pop = api.materialize(spec, device=device)
     if sampler is not None:
         pop = dataclasses.replace(pop, sampler=sampler)
-    return api.make_engine(plan, pop, device=device)
+    return api.make_engine(plan, pop, device=device, mesh=mesh)
 
 
 def build_engine(sc: Scenario, seed: int = 0,
                  sampler: Optional[ClientSampler] = None,
                  backend: str = "reference", mesh=None,
                  device=None) -> FleetEngine:
-    """Scenario -> FleetEngine on synthetic federated image data."""
+    """Scenario -> FleetEngine on synthetic federated image data;
+    ``mesh`` (a `FleetMesh`) shards the node axis over its ranks."""
     return _build(sc, "sync", seed, sampler, backend, mesh, device)
 
 

@@ -380,17 +380,25 @@ DEFAULT_BANDWIDTH_BPS = 12.5e6      # 100 Mbit/s edge uplink
 
 
 def init_engine_common(init_params, node_data, test_data, cloud_test,
-                       profile, device):
-    """Setup both engines share: shards to `FleetData` on the device, eval
-    sets to the device, the default system profile, the param count.
+                       profile, device, mesh=None):
+    """Setup both engines share: shards to `FleetData` on the device (on
+    a ``mesh``: padded to a shard multiple and cut to this rank's block,
+    ``sizes`` kept whole on the host), eval sets to the device, the
+    default system profile, the param count.
 
     Returns (data, n_nodes, test, cloud, profile, n_params)."""
     from .engine import NodeProfile       # deferred: engine imports stages
     from .state import FleetData
 
     data = (node_data if isinstance(node_data, FleetData)
-            else FleetData.from_node_data(node_data, device=device))
+            else FleetData.from_node_data(
+                node_data, device=device if mesh is None else "cpu"))
     n_nodes = data.n_nodes
+    if mesh is not None:
+        padded = data.pad_to(mesh.padded(n_nodes))
+        blk = mesh.put_nodes({"x": padded.x, "y": padded.y})
+        data = FleetData(x=blk["x"].to(device), y=blk["y"].to(device),
+                         sizes=padded.sizes)
     test = tuple(torch.as_tensor(np.asarray(a), device=device)
                  for a in test_data)
     cloud = tuple(torch.as_tensor(np.asarray(a), device=device)

@@ -139,3 +139,46 @@ class FleetData:
             ys[i, :len(y)] = y
         return cls(x=torch.as_tensor(xs, device=device),
                    y=torch.as_tensor(ys, device=device), sizes=sizes)
+
+    def pad_to(self, n_total: int) -> "FleetData":
+        """Append dummy nodes up to ``n_total`` rows (mesh shard
+        multiples): one zero sample each (``sizes`` 1, so minibatch draws
+        in [0, size) stay defined).  Sharded engines mask them out of
+        every aggregate, so their updates never land anywhere."""
+        pad = n_total - self.n_nodes
+        if pad < 0:
+            raise ValueError(f"pad_to: fleet already has {self.n_nodes} "
+                             f"nodes > requested {n_total}")
+        if pad == 0:
+            return self
+        return FleetData(
+            x=torch.cat([self.x, self.x.new_zeros((pad,)
+                                                  + tuple(self.x.shape[1:]))]),
+            y=torch.cat([self.y, self.y.new_zeros((pad,)
+                                                  + tuple(self.y.shape[1:]))]),
+            sizes=np.concatenate([self.sizes,
+                                  np.ones(pad, self.sizes.dtype)]))
+
+
+def pad_node_axis(tree, n_total: int):
+    """Zero-pad every leaf's leading node axis up to ``n_total`` rows (the
+    stacked-tree analogue of `FleetData.pad_to`)."""
+    def one(x):
+        pad = n_total - x.shape[0]
+        if pad < 0:
+            raise ValueError(f"pad_node_axis: leading axis {x.shape[0]} "
+                             f"> requested {n_total}")
+        if pad == 0:
+            return x
+        return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+    return tree_util.map(one, tree)
+
+
+def pad_keys(keys: np.ndarray, n_total: int) -> np.ndarray:
+    """Pad stacked per-node keys ((n, 2) uint32) to ``n_total`` rows by
+    repeating the last real key: padding rows only feed masked-out dummy
+    updates, but their keys must still be valid."""
+    keys = np.asarray(keys)
+    n = keys.shape[0]
+    return keys[np.minimum(np.arange(n_total), n - 1)]

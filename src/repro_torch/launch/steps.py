@@ -2,9 +2,11 @@
 config.
 
 Port of `repro.launch.steps.make_step` on one device.  The reference's
-sharding assignment (`arg_pspecs`, `fsdp_axes_for`, `dp_axes_for`,
-`BIG_ARCHS`) and its `sharding` context belong to the multi-device port
-(ROADMAP.md item 15): on one device there is no mesh to constrain.
+sharding assignment for LLM training and serving (`arg_pspecs`,
+`fsdp_axes_for`, `dp_axes_for`, `BIG_ARCHS`) and its `sharding` context
+are not ported: they are the LLM half of ROADMAP.md item 15
+('Multi-device: torch.distributed'); the fleet's node mesh is
+`fleet.mesh`.
 """
 from __future__ import annotations
 

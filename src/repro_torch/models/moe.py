@@ -73,12 +73,21 @@ def top_k(probs: torch.Tensor, k: int
     return vals[..., :k], idx[..., :k]
 
 
+def expert_counts(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Assignments per expert, int64 (E,): `torch.bincount` with its
+    length taken from the config, so the shape never depends on the
+    routing (the reference's host arithmetic fixes it the same way)."""
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=flat_e.device).index_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.int64))
+
+
 def positions_in_expert(flat_e: torch.Tensor, n_experts: int
                         ) -> torch.Tensor:
     """Rank of each assignment within its expert, in assignment order
     (the reference's `_positions_in_expert`): int32."""
     order = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=n_experts)
+    counts = expert_counts(flat_e, n_experts)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(order)
     pos[order] = torch.arange(order.numel(), device=order.device) \
@@ -122,7 +131,7 @@ def moe_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor
     # Switch load-balance loss: E * sum_e f_e * p_e
     me = torch.mean(probs, dim=0)                                  # (E,)
     flat_e = idx.reshape(T * K)
-    ce = torch.bincount(flat_e, minlength=E).to(torch.float32) / (T * K)
+    ce = expert_counts(flat_e, E).to(torch.float32) / (T * K)
     aux = E * torch.sum(me * ce)
 
     C = capacity(cfg, T)

@@ -4,7 +4,9 @@ and mid-run `SimEvent` spec mutation.
 
 Port of `repro.sim.service` on the port's steppers, on ``device`` ("cuda"
 unless the caller passes "cpu").  Its checkpoints are the reference's
-files: a checkpoint the JAX service wrote resumes here.
+files: a checkpoint the JAX service wrote resumes here.  On a mesh
+topology every rank drives its own service; only rank 0 writes the
+checkpoint files, and every rank reads them to resume.
 
 `api.run` executes a plan as a batch: build a stepper, drain it, report.
 `SimService` owns the same stepper but stays in the loop between records:
@@ -41,11 +43,12 @@ import numpy as np
 from ..api.plan import ExperimentPlan, compile_plan
 from ..api.population import materialize
 from ..api.report import RoundRecord, RunReport, detection_log
-from ..api.run import _ObsSession, init_state, make_stepper
+from ..api.run import _ObsSession, engine_name, init_state, make_stepper
 from ..api.spec import ExperimentSpec, SimSpec, apply_sim_event
 from ..checkpointing import load_checkpoint, read_manifest, save_checkpoint
 from ..core import async_update
 from ..device import resolve
+from ..fleet.mesh import barrier, is_writer
 from .traffic import DynamicSampler, modulation
 
 
@@ -202,7 +205,8 @@ class SimService:
             net = self.stepper.net.summary()
         acct = self.state.accountant
         return RunReport(
-            mode=self.plan.mode, engine=self.plan.engine, records=records,
+            mode=self.plan.mode, engine=engine_name(self.plan),
+            records=records,
             kappa=async_update.communication_efficiency(comm, comp),
             epsilon_spent=(acct.epsilon(self.spec.privacy.delta)
                            if acct is not None else 0.0),
@@ -304,7 +308,7 @@ class SimService:
                                  "no checkpoint_dir configured")
             path = os.path.join(self.checkpoint_dir,
                                 f"ckpt_{self.records_done:06d}")
-        arrays, smeta = self.stepper.export_state()
+        arrays, smeta = self.stepper.export_state()     # every rank
         tree = {"stepper": arrays,
                 "membership": np.asarray(self.membership, bool)}
         extra = {
@@ -327,7 +331,9 @@ class SimService:
         inner = self.dyn.inner
         if inner is not None and hasattr(inner, "rng"):
             extra["sampler_rng"] = inner.rng.bit_generator.state
-        save_checkpoint(path, tree, step=self.records_done, extra=extra)
+        if is_writer():
+            save_checkpoint(path, tree, step=self.records_done, extra=extra)
+        barrier()           # no rank reads the files before they exist
         tr = self.session.tracer
         if tr is not None and tr.enabled:
             tr.instant("sim.checkpoint", round=int(self.records_done),

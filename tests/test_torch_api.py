@@ -1,13 +1,14 @@
 """The port's API layer against `repro.api`.
 
 One spec JSON (schema v6) loads in both packages; contradictory specs
-raise the same `SpecError`; features the port does not have yet raise
-NotImplementedError (observability and the simulation service compile
-into the reference's stages); and the same small runs through both
-`run()`s from one population (the reference's params carried over) give
-the same records: equal t, comm_bytes, n_rejected and detections,
-accuracy within 1/n_test, equal ε and κ, final params within atol 1e-4
-(local SGD sums in another order in XLA than in PyTorch)."""
+raise the same `SpecError`; the reference loops, which the port does not
+have, raise NotImplementedError (observability, the simulation service
+and the mesh topology compile into the reference's plans); and the same
+small runs through both `run()`s from one population (the reference's
+params carried over) give the same records: equal t, comm_bytes,
+n_rejected and detections, accuracy within 1/n_test, equal ε and κ,
+final params within atol 1e-4 (local SGD sums in another order in XLA
+than in PyTorch)."""
 import dataclasses
 import os
 import subprocess
@@ -93,7 +94,6 @@ def test_contradictory_specs_raise_the_same_spec_error(case):
 
 UNPORTED = [
     lambda m: m.ExperimentSpec(topology=m.Topology(kind="sequential")),
-    lambda m: m.ExperimentSpec(topology=m.Topology(kind="mesh")),
 ]
 
 
@@ -108,15 +108,18 @@ def test_unported_features_raise_not_implemented(case):
 PORTED = [
     lambda m: m.ExperimentSpec(obs=m.ObsSpec(enabled=True)),
     lambda m: m.ExperimentSpec(sim=m.SimSpec()),
+    lambda m: m.ExperimentSpec(topology=m.Topology(kind="mesh", devices=4)),
 ]
 
 
 @pytest.mark.parametrize("case", range(len(PORTED)))
 def test_obs_and_sim_specs_compile_as_in_the_reference(case):
-    """Observability and the simulation service are ported: both
-    packages compile these specs into the same stages."""
+    """Observability, the simulation service and the mesh topology are
+    ported: both packages compile these specs into the same plan."""
     ref, port = _both(PORTED[case])
-    assert tapi.compile_plan(port).stages == japi.compile_plan(ref).stages
+    tp, jp = tapi.compile_plan(port), japi.compile_plan(ref)
+    assert (tp.stages, tp.engine, tp.mesh_devices) == \
+        (jp.stages, jp.engine, jp.mesh_devices)
 
 
 def _full_network(m):
@@ -352,8 +355,9 @@ def test_run_needs_a_card_unless_cpu_is_asked_for():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """A fresh interpreter imports every module of the port; afterwards no
-    `jax*` and no `repro`/`repro.*` module is loaded."""
+    """A fresh interpreter imports every module of the port, the port's
+    examples and `chip_smoke.py`; afterwards no `jax*` and no
+    `repro`/`repro.*` module is loaded."""
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     code = (
         "import importlib, pkgutil, sys\n"
@@ -372,8 +376,20 @@ def test_port_imports_neither_jax_nor_the_reference():
         "assert 'repro_torch.checkpointing.checkpoint' in sys.modules\n"
         "assert 'repro_torch.models.moe' in sys.modules\n"
         "for m in ('optim.optimizers', 'core.fed_step', 'launch.steps', "
-        "'launch.train'):\n"
+        "'launch.train', 'fleet.mesh', 'launch.shapes', 'launch.cost', "
+        "'launch.roofline', 'launch.dryrun', 'launch.dryrun_all', "
+        "'configs.paper_cnn'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
+        "import glob, importlib.util, os\n"
+        f"root = {os.path.dirname(src)!r}\n"
+        "for path in sorted(glob.glob(os.path.join(root, 'examples', "
+        "'torch_*.py'))) + [os.path.join(root, 'chip_smoke.py')]:\n"
+        "    name = os.path.basename(path)[:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=src)
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -242,7 +242,11 @@ def test_scenario_specs_match_reference(name):
         js.with_nodes(33).to_spec().to_json()
 
 
-def test_scenario_builders_run_and_refuse_a_mesh():
+def test_scenario_builders_run_and_refuse_a_mesh(tmp_path):
+    """The builders run, build over a `FleetMesh` of one (a gloo group of
+    one rank) and refuse anything else as a mesh."""
+    import torch.distributed as dist
+
     eng = tscen.build_engine(tscen.get_scenario("sybil_trust"),
                              device="cpu")
     assert eng.attack.kind == "sybil" and eng.state.trust.shape == (10,)
@@ -252,6 +256,20 @@ def test_scenario_builders_run_and_refuse_a_mesh():
                                    device="cpu")
     assert eng.state.throttle is not None and eng.state.trust is not None
     eng.run_window()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = tfleet.FleetMesh.create()
+        eng = tscen.build_engine(tscen.get_scenario("sybil_trust"),
+                                 mesh=mesh, device="cpu")
+        assert eng.mesh is mesh and eng.n_pad == 10
+        assert eng.run_round().n_participating == 10
+        eng = tscen.build_async_engine(
+            tscen.get_scenario("async_adaptive_trust"), mesh=mesh,
+            device="cpu")
+        assert eng.run_window().n_processed > 0
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(TypeError, match="FleetMesh"):
         tscen.build_engine(tscen.get_scenario("honest"), mesh=object(),
                            device="cpu")

@@ -28,6 +28,8 @@ observability and simulation layers: `obs.fence` waits for the card; a
 traced 1,000-node window, and a run resumed from a checkpoint on the
 card, are bit for bit their untraced and uninterrupted twins; a
 checkpoint written on the card restores on the CPU with equal arrays.
+The node mesh: a `FleetMesh` over an NCCL group of one rank against the
+unsharded engines, at the CPU mesh tests' limits.
 """
 import numpy as np
 import pytest
@@ -1194,3 +1196,42 @@ def test_tree_noise_runs_in_bounded_memory(cuda):
         cnt = torch.arange(lo, hi, dtype=torch.int64, device="cuda")
         z = prng.erf_inv_draws(prng.bits_tensor(k1, k2, cnt))
         assert torch.equal(out[lo:hi], z * float(c))
+
+
+def _paper_mesh_pair(kind, topology):
+    """The paper's configuration at 200 nodes (no network), on a topology."""
+    import dataclasses
+
+    return dataclasses.replace(
+        _paper_async(200, rounds=2), schedule=api.SchedulePolicy(kind=kind),
+        network=api.NetworkSpec(), topology=topology)
+
+
+@pytest.mark.parametrize("kind", ["sync", "async"])
+def test_nccl_world_of_one_matches_the_unsharded_run(cuda, kind, tmp_path):
+    """A `FleetMesh` over an NCCL group of one rank against the unsharded
+    engine, at the sharded tests' limits: rejections equal, accuracy
+    within 2e-3, params within 1e-5 (sync) and 1e-4 (async), versions
+    equal."""
+    import torch.distributed as dist
+
+    single = _paper_mesh_pair(kind, api.Topology(backend="pallas"))
+    mesh = _paper_mesh_pair(kind, api.Topology(kind="mesh", devices=1,
+                                               backend="pallas"))
+    pop = api.materialize(single, device="cuda")
+    want = api.run(api.compile_plan(single), population=pop, device="cuda")
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        got = api.run(api.compile_plan(mesh), population=pop, device="cuda")
+    finally:
+        dist.destroy_process_group()
+    assert got.engine == "fleet-mesh" and want.engine == "fleet"
+    assert len(got.records) == len(want.records) == 2
+    for a, b in zip(got.records, want.records):
+        assert a.n_rejected == b.n_rejected and a.version == b.version
+        assert abs(a.accuracy - b.accuracy) < 2e-3
+    tol = 1e-5 if kind == "sync" else 1e-4
+    for a, b in zip(tree.leaves(got.final_params),
+                    tree.leaves(want.final_params)):
+        assert float((a - b).abs().max()) < tol
