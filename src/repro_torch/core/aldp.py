@@ -13,7 +13,10 @@ The arithmetic follows the reference's compiled engines, where XLA folds
 add: upload = fma(x, scale, erf_inv(u) · f32(√2 · σS)).  The tree-level
 `add_gaussian_noise` (the LLM round's noise, `core.fed_step`) draws leaf
 by leaf, `NOISE_CHUNK` counters at a time, so a 0.4 B-param tree needs
-the chain's temporaries of one chunk, not of the whole tree.
+the chain's temporaries of one chunk, not of the whole tree.  On a
+device mesh the leaves are DTensors: `global_norm` sums each rank's
+shards and all-reduces, and each element's noise is drawn at its counter
+in the whole leaf, so a shard draws exactly the unsharded leaf's bits.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from .. import prng
 from .. import tree as tree_util
+from ..sharding import ctx
 from .numerics import fma_f32
 
 # Counters the noise chain draws at once: its int64 and float64
@@ -101,11 +105,50 @@ def _noised(x: torch.Tensor, z: torch.Tensor, c: np.float32) -> torch.Tensor:
     return x + (z * float(c)).to(x.dtype)
 
 
+def _global_counters(shape, offset, global_shape, lo: int, hi: int,
+                     device) -> torch.Tensor:
+    """The counters of local elements lo .. hi − 1 (flat, row-major) of a
+    shard of ``shape`` at ``offset`` in a tensor of ``global_shape``:
+    each element's flat index in the whole tensor."""
+    j = torch.arange(lo, hi, dtype=torch.int64, device=device)
+    out = torch.zeros_like(j)
+    gstride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        out += (j % shape[d] + offset[d]) * gstride
+        j = j // shape[d]
+        gstride *= global_shape[d]
+    return out
+
+
+def _noise_shard(x, words, c: np.float32):
+    """One node's noise on a DTensor leaf: each local element drawn at
+    its counter in the whole leaf's flat order, so the draws are the
+    unsharded leaf's bit for bit, whatever the placement."""
+    from torch.distributed.tensor import DTensor
+    loc = x.to_local()
+    shape, offset = ctx.local_box(x.shape, x.device_mesh, x.placements)
+    flat = loc.reshape(-1)
+    res = torch.empty_like(flat)
+    k1, k2 = (torch.tensor(int(w), dtype=torch.int64, device=loc.device)
+              for w in words)
+    for lo in range(0, flat.numel(), NOISE_CHUNK):
+        hi = min(lo + NOISE_CHUNK, flat.numel())
+        cnt = _global_counters(tuple(shape), tuple(offset), tuple(x.shape),
+                               lo, hi, loc.device)
+        z = prng.erf_inv_draws(prng.bits_tensor(k1, k2, cnt))
+        res[lo:hi] = _noised(flat[lo:hi], z, c)
+    return DTensor.from_local(res.reshape(loc.shape), x.device_mesh,
+                              x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
 def add_gaussian_noise(tree, key, sigma: float, clip_s: float):
     """Adds N(0, (σS)²) to every coordinate.  ``key`` is one uint32 (2,)
     key, or (C, 2) with a leading node axis on every leaf.  Leaf i of node
     c draws from split(key_c, L)[i] over counters 0 .. size − 1 (the bits
-    of `leaf_bits`), `NOISE_CHUNK` of them at a time."""
+    of `leaf_bits`), `NOISE_CHUNK` of them at a time.  A DTensor leaf
+    (one node's, on a device mesh) draws each local element at its
+    global counter."""
     key = np.asarray(key, np.uint32)
     batched = key.ndim == 2
     leaves = tree_util.leaves(tree)
@@ -113,6 +156,12 @@ def add_gaussian_noise(tree, key, sigma: float, clip_s: float):
     c = prng.normal_scale(sigma * clip_s)
     out = []
     for i, x in enumerate(leaves):
+        if ctx.is_dtensor(x):
+            if batched:
+                raise ValueError("a sharded leaf is one node's: pass one "
+                                 "(2,) key")
+            out.append(_noise_shard(x, words[0, i], c))
+            continue
         flat = (x if batched else x[None]).reshape(words.shape[0], -1)
         res = torch.empty_like(flat)
         n = flat.shape[1]

@@ -105,7 +105,16 @@ def check(rc: int, lib: ctypes.CDLL, fn: str) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+    """A tensor's device address for a kernel.  A tensor subclass (a
+    DTensor: the sharded model calls kernels on each rank's local tensor)
+    is refused: its address is not its data's."""
+    if t is None:
+        return ctypes.c_void_p(0)
+    import torch
+    if type(t) is not torch.Tensor:
+        raise TypeError(f"a kernel takes plain tensors, got "
+                        f"{type(t).__name__}")
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def stream(device) -> ctypes.c_void_p:

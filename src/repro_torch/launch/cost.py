@@ -18,10 +18,23 @@ that sees every aten operation the step dispatches and counts
 
 A step whose Python reads a tensor's value (``.item()``, ``bool(t)``)
 raises here: the port keeps such values on the host or in the config.
+
+A sharded step (DTensors on a device mesh, `sharding`) is counted per
+rank: an operation on DTensors is passed to DTensor, which runs this
+rank's local operations and the collectives its redistributions need
+(functional c10d operations), and those are what is counted.  The
+global-shape operations DTensor runs on fake tensors to infer its
+outputs' metadata are not counted: they are found by their caller's
+frame, a DTensor internal that is looked up, and walked to, only once
+the step has dispatched a DTensor operation.
+A collective's bytes are its larger buffer (an all-gather's result, a
+reduce-scatter's or all-reduce's input): what its ring moves, to within
+the (n − 1)/n factor.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 import weakref
 from typing import Callable, Dict
 
@@ -48,6 +61,23 @@ _META_OPS = {
 }
 
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+_NOT_COLLECTIVES = ("wait_tensor",)
+
+
+def _meta_inference_code():
+    """The code object of DTensor's output-metadata inference, whose
+    global-shape operations are no rank's work."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    return ShardingPropagator._propagate_tensor_meta_non_cached.__code__
+
+
+def _in(code, depth: int = 64) -> bool:
+    f = sys._getframe(2)
+    while f is not None and depth:
+        if f.f_code is code:
+            return True
+        f, depth = f.f_back, depth - 1
+    return False
 
 
 def _nbytes(x) -> int:
@@ -71,15 +101,19 @@ class Cost:
 
 
 class CostMode(TorchDispatchMode):
-    """Counts flops, bytes and collectives of every operation it sees."""
+    """Counts flops, bytes and collectives of every operation it sees
+    (one rank's share of a step on DTensors)."""
 
     def __init__(self):
         super().__init__()
+        from torch.distributed.tensor import DTensor
         from torch.utils.flop_counter import flop_registry
         self.registry = flop_registry
         self.cost = Cost()
         self._live = 0
         self._whole = set()     # operations with no decomposition
+        self._dtensor = DTensor
+        self._infer = None      # set at the first DTensor operation
 
     def _free(self, n: int) -> None:
         self._live -= n
@@ -97,6 +131,12 @@ class CostMode(TorchDispatchMode):
         kwargs = kwargs or {}
         if func in _META_OPS:
             return NotImplemented
+        if any(issubclass(t, self._dtensor) for t in types):
+            if self._infer is None:
+                self._infer = _meta_inference_code()
+            return NotImplemented       # DTensor runs the local operations
+        if self._infer is not None and _in(self._infer):
+            return func(*args, **kwargs)
         if func is torch.ops.prim.device.default:
             return func(*args, **kwargs)
         if func not in self._whole and func not in self.registry:
@@ -117,7 +157,11 @@ class CostMode(TorchDispatchMode):
         operands = sum(_nbytes(x) for x in tree_flatten((args, kwargs))[0])
         if func.namespace in _COLLECTIVE_NAMESPACES:
             name = packet.__name__.rstrip("_")
-            c.coll_bytes[name] = c.coll_bytes.get(name, 0.0) + operands
+            if name in _NOT_COLLECTIVES:
+                return out
+            moved = max(operands, sum(_nbytes(x)
+                                      for x in tree_flatten(out)[0]))
+            c.coll_bytes[name] = c.coll_bytes.get(name, 0.0) + moved
             c.coll_counts[name] = c.coll_counts.get(name, 0) + 1
         elif not func.is_view:
             c.bytes += operands + sum(_nbytes(x)

@@ -81,12 +81,26 @@ def _as_meta(tree):
 
 def params_struct(cfg: ModelConfig, seed: int = 0):
     """The model's params as meta tensors: `init_params` traced under
-    fake tensors, so no draw is stored."""
+    fake tensors, so no draw is stored.  One layer of each stack is
+    traced and its leaves given the stack's depth (every layer of a stack
+    has the same shapes), so a deep model traces as fast as a shallow
+    one."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    one = cfg.replace(n_layers=1, encoder_layers=min(cfg.encoder_layers, 1))
     with FakeTensorMode():
-        fake = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
-    return _as_meta(fake)
+        fake = init_params(one, torch.Generator().manual_seed(seed), "cpu")
+    tree = _as_meta(fake)
+
+    def deepen(stack, n):
+        return tree_util.map(lambda x: meta((n,) + tuple(x.shape[1:]),
+                                            x.dtype), stack)
+
+    tree["blocks"] = deepen(tree["blocks"], cfg.n_layers)
+    if "encoder" in tree:
+        tree["encoder"]["blocks"] = deepen(tree["encoder"]["blocks"],
+                                           cfg.encoder_layers)
+    return tree
 
 
 def cache_struct(cfg: ModelConfig, batch: int, cache_len: int):

@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import ctx
 from .layers import init_linear, linear_fwd
 
 NEG_INF = -1e30
@@ -57,11 +58,39 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 def qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv_heads: int,
         head_dim: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    B, S, _ = x.shape
-    q = linear_fwd(p["wq"], x).reshape(B, S, n_heads, head_dim)
-    k = linear_fwd(p["wk"], x).reshape(B, S, n_kv_heads, head_dim)
-    v = linear_fwd(p["wv"], x).reshape(B, S, n_kv_heads, head_dim)
-    return q, k, v
+    shard = ctx.shard_heads(x, n_heads, n_kv_heads)
+    return (project_heads(p["wq"], x, n_heads, head_dim, shard),
+            project_heads(p["wk"], x, n_kv_heads, head_dim, shard),
+            project_heads(p["wv"], x, n_kv_heads, head_dim, shard))
+
+
+def project_heads(p: dict, x: torch.Tensor, n: int, head_dim: int,
+                  shard: bool) -> torch.Tensor:
+    """(B, S, d) -> (B, S, n, head_dim) through the linear ``p``; on a
+    mesh the projection is first put in the layout its head view needs
+    (`sharding.ctx.heads`)."""
+    B, S = x.shape[:2]
+    return ctx.heads(linear_fwd(p, x), shard).reshape(B, S, n, head_dim)
+
+
+def local_heads(fn, q: torch.Tensor, *kv, n_kv_heads: int):
+    """``fn(q, *kv)`` for (B, S, heads, D) operands, its first output
+    (B, S, H, D) flattened to (B, S, H·D).  On a mesh, on each rank's
+    (batch, heads) block: batch on the data axes, heads on "model" when
+    whole heads and GQA groups split over it, else replicated there; the
+    outputs come back in that layout (the flattened heads on "model"),
+    since DTensor cannot reshape a dim whose shards cut a head."""
+    def run(*args):
+        out = fn(*args)
+        first = out[0] if isinstance(out, tuple) else out
+        flat = first.reshape(first.shape[0], first.shape[1], -1)
+        return (flat,) + tuple(out[1:]) if isinstance(out, tuple) else flat
+
+    if not ctx.is_dtensor(q):
+        return run(q, *kv)
+    shard = ctx.shard_heads(q, q.shape[2], n_kv_heads)
+    lay = {0: "dp", 2: "model"} if shard else {0: "dp"}
+    return ctx.local(run, (q,) + kv, [lay] * (1 + len(kv)), lay)
 
 
 # ---------------------------------------------------------------------------

@@ -104,10 +104,9 @@ class ModelConfig:
     tie_embeddings: bool = False
 
     # distribution
-    seq_parallel: bool = False    # the reference's mesh setting (pin the
-                                  # residual stream's seq dim between
-                                  # blocks); the port runs on one device
-                                  # and ignores it
+    seq_parallel: bool = False    # on a device mesh, pin the residual
+                                  # stream's seq dim on "model" (a no-op
+                                  # on one device)
 
     # kernels
     use_flash: bool = False       # route causal self-attention through the

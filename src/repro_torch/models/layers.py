@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.async_update import _libm_powf
+from ..sharding import ctx
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -50,7 +51,7 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def linear_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+    y = x @ ctx.weight(p["w"]).to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -193,8 +194,10 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 def embed_fwd(p: dict, tokens: torch.Tensor, compute_dtype: torch.dtype
               ) -> torch.Tensor:
+    if ctx.is_dtensor(p["w"]):
+        return ctx.embedding(p["w"], tokens).to(compute_dtype)
     return p["w"][tokens.long()].to(compute_dtype)
 
 
 def unembed_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype).T
+    return x @ ctx.weight(p["w"]).to(x.dtype).T

@@ -40,8 +40,19 @@ the block in the backward pass; the stacked layers are unbound once, so
 their grads stack back in one copy.  K6 has no backward kernel (the
 reference cannot differentiate through its Pallas kernel either), so a
 ``cfg.use_flash`` forward over params that require grad raises rather
-than train without attention's gradients.  ``seq_parallel`` changes no
-value and is ignored.
+than train without attention's gradients.
+
+On a device mesh (params and inputs as DTensors placed by
+`sharding.rules`, inside `sharding.ctx.mesh_context`) DTensor runs the
+matmuls, norms and elementwise work by sharding propagation; the
+residual stream is pinned (batch on the data axes, replicated on
+"model", or with ``seq_parallel`` the sequence on "model") after every
+residual add and block, where the reference pins it between blocks;
+attention (K6, the plain version and the cache paths) runs on each
+rank's (batch, heads) block in a local region (`attention.local_heads`),
+the Mamba mixers on each rank's batch block (`_mixer`), the MoE as
+`moe_fwd` says; the loss gathers the vocab.  Off a mesh every pin is a
+no-op.
 
 Serving with a float32 cache under a bfloat16 model (what
 `launch.serve` does) promotes as jnp does: a decode attention reads
@@ -64,6 +75,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import tree as tree_util
 from ..kernels.ops import attention_pallas
+from ..sharding import ctx
 from . import attention as attn
 from . import ssm
 from .config import ModelConfig
@@ -163,8 +175,13 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor
     """The block's MLP or MoE, and its aux loss (0 for an MLP)."""
     if "moe" in p:
         return moe_fwd(p["moe"], cfg, x)
-    return mlp_fwd(cfg.mlp, p["mlp"], x), torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+    return mlp_fwd(cfg.mlp, p["mlp"], x), _zero(x)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    """A float32 0 to sum aux losses into, replicated on ``x``'s mesh."""
+    return ctx.like(torch.zeros((), dtype=torch.float32, device=x.device),
+                    x)
 
 
 def _transformer_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -175,37 +192,48 @@ def _transformer_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """One block (dense, moe, encoder, or with ``enc_out`` a decoder
     block that cross-attends to it) -> (x, aux loss)."""
     hd = cfg.derived_head_dim()
+    x = _pin(cfg, x)
     h = norm_fwd(cfg.norm, p["norm1"], x, cfg.norm_eps)
     q, k, v = attn.qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, hd)
     if angles is not None:
         q, k = apply_rope(q, angles), apply_rope(k, angles)
     if cfg.use_flash and causal:
-        o = attention_pallas(q, k, v, causal=True, window=window)
+        o = attn.local_heads(lambda q, k, v: attention_pallas(
+            q, k, v, causal=True, window=window), q, k, v,
+            n_kv_heads=cfg.n_kv_heads)
     else:
-        o = attn.attention(q, k, v, causal=causal, window=window,
-                           chunk=cfg.attn_chunk)
-    B, S = x.shape[:2]
-    x = x + linear_fwd(p["attn"]["wo"], o.reshape(B, S, -1))
+        o = attn.local_heads(lambda q, k, v: attn.attention(
+            q, k, v, causal=causal, window=window, chunk=cfg.attn_chunk),
+            q, k, v, n_kv_heads=cfg.n_kv_heads)
+    x = _pin(cfg, x + linear_fwd(p["attn"]["wo"], o))
     if enc_out is not None:
         h = norm_fwd(cfg.norm, p["norm_x"], x, cfg.norm_eps)
-        q2 = linear_fwd(p["cross"]["wq"], h).reshape(B, S, cfg.n_heads, hd)
+        q2 = _cross_q(p["cross"], cfg, h)
         k2, v2 = _cross_kv(p["cross"], cfg, enc_out)
-        o2 = attn.attention(q2, k2, v2, causal=False, window=0,
-                            chunk=cfg.attn_chunk)
-        x = x + linear_fwd(p["cross"]["wo"], o2.reshape(B, S, -1))
+        o2 = attn.local_heads(lambda q, k, v: attn.attention(
+            q, k, v, causal=False, window=0, chunk=cfg.attn_chunk),
+            q2, k2, v2, n_kv_heads=cfg.n_kv_heads)
+        x = _pin(cfg, x + linear_fwd(p["cross"]["wo"], o2))
     h = norm_fwd(cfg.norm, p["norm2"], x, cfg.norm_eps)
     y, aux = _ffn(p, cfg, h)
     return x + y, aux
 
 
+def _cross_q(p_cross: dict, cfg: ModelConfig, h: torch.Tensor
+             ) -> torch.Tensor:
+    """The cross-attention's queries (B, S, H, D)."""
+    return attn.project_heads(
+        p_cross["wq"], h, cfg.n_heads, cfg.derived_head_dim(),
+        ctx.shard_heads(h, cfg.n_heads, cfg.n_kv_heads))
+
+
 def _cross_kv(p_cross: dict, cfg: ModelConfig, enc_out: torch.Tensor):
     """The cross-attention's keys and values of the encoder output
     (B, F, KV, D) each."""
-    B, F = enc_out.shape[:2]
     hd = cfg.derived_head_dim()
-    k = linear_fwd(p_cross["wk"], enc_out).reshape(B, F, cfg.n_kv_heads, hd)
-    v = linear_fwd(p_cross["wv"], enc_out).reshape(B, F, cfg.n_kv_heads, hd)
-    return k, v
+    shard = ctx.shard_heads(enc_out, cfg.n_heads, cfg.n_kv_heads)
+    return tuple(attn.project_heads(p_cross[w], enc_out, cfg.n_kv_heads, hd,
+                                    shard) for w in ("wk", "wv"))
 
 
 def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig,
@@ -216,13 +244,26 @@ def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig,
             "mixer": init(gen, cfg, cfg.param_dtype, device)}
 
 
+def _mixer(fn: Callable, p: dict, cfg: ModelConfig, h: torch.Tensor,
+           state: Optional[dict]) -> Tuple[torch.Tensor, dict]:
+    """A Mamba mixer ``fn(p, cfg, h, state) -> (y, state)``; on a mesh,
+    on each rank's batch block with the mixer's weights gathered (the
+    chunked scans run per batch row and channel, outside any DTensor
+    operation; the states come back batch-sharded)."""
+    if not ctx.is_dtensor(h):
+        return fn(p, cfg, h, state)
+    return ctx.local(lambda p, h, st: fn(p, cfg, h, st), (p, h, state),
+                     [None, {0: "dp"}, {0: "dp"}], ({0: "dp"}, {0: "dp"}))
+
+
 def _mamba_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      state: Optional[dict] = None
                      ) -> Tuple[torch.Tensor, dict]:
+    x = _pin(cfg, x)
     h = norm_fwd(cfg.norm, p["norm"], x, cfg.norm_eps)
     fwd = ssm.mamba1_fwd if cfg.ssm.kind == "mamba1" else ssm.mamba2_fwd
-    y, new_state = fwd(p["mixer"], cfg, h, state)
-    return x + y, new_state
+    y, new_state = _mixer(fwd, p["mixer"], cfg, h, state)
+    return _pin(cfg, x + y), new_state
 
 
 def _mamba_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -230,8 +271,8 @@ def _mamba_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     h = norm_fwd(cfg.norm, p["norm"], x, cfg.norm_eps)
     dec = ssm.mamba1_decode if cfg.ssm.kind == "mamba1" \
         else ssm.mamba2_decode
-    y, new_state = dec(p["mixer"], cfg, h, state)
-    return x + y, new_state
+    y, new_state = _mixer(dec, p["mixer"], cfg, h, state)
+    return _pin(cfg, x + y), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -324,8 +365,27 @@ def _embed_inputs(params: dict, cfg: ModelConfig, batch: dict):
         patches = batch["patches"].to(cdt)
         P = patches.shape[1]
         return (torch.cat([patches, x], dim=1),
-                _vlm_angles(cfg, B, P, S_text, x.device), S_text)
-    return x, _angles_for(cfg, _positions(B, S_text, x.device)), S_text
+                ctx.like(_vlm_angles(cfg, B, P, S_text, x.device), x),
+                S_text)
+    return x, _like(_angles_for(cfg, _positions(B, S_text, x.device)),
+                    x), S_text
+
+
+def _like(angles: Optional[torch.Tensor], x: torch.Tensor):
+    return None if angles is None else ctx.like(angles, x)
+
+
+def _pin(cfg: ModelConfig, h: torch.Tensor, between: bool = False
+         ) -> torch.Tensor:
+    """The residual stream's pin: batch on the data axes, replicated on
+    "model" (a row-parallel product's partial sums are reduced here).
+    ``between`` blocks (the reference's pin) with ``seq_parallel`` the
+    sequence goes on "model" instead, and each block gathers it back on
+    entry."""
+    if not ctx.is_dtensor(h):
+        return h
+    return ctx.to_layout(h, {0: "dp", 1: "model"}
+                         if between and cfg.seq_parallel else {0: "dp"})
 
 
 def _encode_audio(params: dict, cfg: ModelConfig, frames: torch.Tensor,
@@ -333,18 +393,21 @@ def _encode_audio(params: dict, cfg: ModelConfig, frames: torch.Tensor,
     """The audio encoder: non-causal blocks over the frames (RoPE over
     the frame index; no K6), then its final norm."""
     B, Fa = frames.shape[:2]
-    angles = _angles_for(cfg, _positions(B, Fa, frames.device))
+    angles = _like(_angles_for(cfg, _positions(B, Fa, frames.device)),
+                   frames)
     enc = params["encoder"]
     body = lambda p, h: _transformer_block_fwd(  # noqa: E731
         p, cfg, h, angles, causal=False, window=0)[0]
-    x = frames
+    x = _pin(cfg, frames, True)
     for p in _layers(enc["blocks"], cfg.encoder_layers):
-        x = _block(body, remat, p, x)
+        x = _pin(cfg, _block(body, remat, p, x), True)
     return norm_fwd(cfg.norm, enc["final_norm"], x, cfg.norm_eps)
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = norm_fwd(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    """The final norm and the unembedding, on the stream's batch layout
+    (a ``seq_parallel`` sequence gathered back first)."""
+    x = norm_fwd(cfg.norm, params["final_norm"], _pin(cfg, x), cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed_fwd(head, x)
 
@@ -360,7 +423,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict
     _check_family(cfg)
     remat = _trains(params, cfg) and cfg.remat
     x, angles, S_text = _embed_inputs(params, cfg, batch)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     if cfg.family in _ATTENTION:
         enc_out = None
         if cfg.family == "audio":
@@ -370,8 +433,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict
         body = lambda p, h: _transformer_block_fwd(  # noqa: E731
             p, cfg, h, angles, causal=True, window=cfg.sliding_window,
             enc_out=enc_out)
+        x = _pin(cfg, x, True)
         for p in _layers(params["blocks"], cfg.n_layers):
             x, a = _block(body, remat, p, x)
+            x = _pin(cfg, x, True)
             aux = aux + a
         x = x[:, -S_text:]
     else:
@@ -405,13 +470,14 @@ def _mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
     dense block: its aux loss is 0)."""
     body = lambda p, h: _mamba_block_fwd(p, cfg, h)[0]  # noqa: E731
     layers = _layers(params["blocks"], cfg.n_layers)
+    x = _pin(cfg, x, True)
     for start, size in _hybrid_groups(cfg):
         for p in layers[start:start + size]:
-            x = _block(body, remat, p, x)
+            x = _pin(cfg, _block(body, remat, p, x), True)
         if _attn_after(cfg, start, size):
-            x = _transformer_block_fwd(params["shared_attn"], cfg, x,
-                                       angles, causal=True,
-                                       window=cfg.sliding_window)[0]
+            x = _pin(cfg, _transformer_block_fwd(
+                params["shared_attn"], cfg, x, angles, causal=True,
+                window=cfg.sliding_window)[0], True)
     return x
 
 
@@ -422,6 +488,8 @@ def _mamba_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict
             ) -> Tuple[torch.Tensor, dict]:
     logits, aux = forward(params, cfg, batch)
+    # on a mesh the loss reads whole rows: vocab gathered, batch on dp
+    logits = ctx.to_layout(logits, {0: "dp"})
     targets = batch["targets"].long()
     mask = batch.get("loss_mask")
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
@@ -494,34 +562,53 @@ def _attn_block_with_cache(p, cfg: ModelConfig, x, angles, cache_layer,
     with ``cross_cache`` (the layer's cross keys and values) it
     cross-attends to the encoder output.  Returns (x, cache_layer)."""
     hd = cfg.derived_head_dim()
-    B, S = x.shape[:2]
+    S = x.shape[1]
     h = norm_fwd(cfg.norm, p["norm1"], x, cfg.norm_eps)
     q, k, v = attn.qkv(p["attn"], h, cfg.n_heads, cfg.n_kv_heads, hd)
     if angles is not None:
         q, k = apply_rope(q, angles), apply_rope(k, angles)
-    cache_layer = attn.cache_write(cache_layer, k, v)
-    if decode:
-        o = attn.decode_attend(q, cache_layer, window=cfg.sliding_window)
-    else:
-        o = attn.attention(q, k, v, causal=True, window=cfg.sliding_window,
-                           chunk=cfg.attn_chunk)
-    x = x + linear_fwd(p["attn"]["wo"], o.reshape(B, S, -1))
+    idx = cache_layer["idx"]
+
+    def attend(q, k, v, ck, cv):
+        layer = attn.cache_write({"k": ck, "v": cv, "idx": idx}, k, v)
+        if decode:
+            o = attn.decode_attend(q, layer, window=cfg.sliding_window)
+        else:
+            o = attn.attention(q, k, v, causal=True,
+                               window=cfg.sliding_window,
+                               chunk=cfg.attn_chunk)
+        return o, layer["k"], layer["v"]
+
+    # on a mesh the layer's cache slot is read and written in the
+    # attention's (batch, heads) layout, then stored back in its own
+    o, ck, cv = attn.local_heads(attend, q, k, v, cache_layer["k"],
+                                 cache_layer["v"],
+                                 n_kv_heads=cfg.n_kv_heads)
+    if ck is not cache_layer["k"] and not ctx.same_placement(
+            ck, cache_layer["k"]):      # else written in place already
+        ctx.write(cache_layer["k"], ck)
+        ctx.write(cache_layer["v"], cv)
+    cache_layer = dict(cache_layer, idx=idx + S)
+    x = _pin(cfg, x + linear_fwd(p["attn"]["wo"], o))
     if cross_cache is not None:
         h = norm_fwd(cfg.norm, p["norm_x"], x, cfg.norm_eps)
-        q2 = linear_fwd(p["cross"]["wq"], h).reshape(B, S, cfg.n_heads, hd)
+        q2 = _cross_q(p["cross"], cfg, h)
         kc, vc = cross_cache["k"], cross_cache["v"]
         if decode:      # read as cached (float32 under launch.serve)
-            o2 = attn.decode_attend(q2, {
-                "k": kc, "v": vc,
-                "idx": torch.tensor(kc.shape[1], dtype=torch.int32,
-                                    device=kc.device)})
+            o2 = attn.local_heads(lambda q, k, v: attn.decode_attend(q, {
+                "k": k, "v": v,
+                "idx": torch.tensor(k.shape[1], dtype=torch.int32,
+                                    device=k.device)}), q2, kc, vc,
+                n_kv_heads=cfg.n_kv_heads)
         else:
-            o2 = attn.attention(q2, kc.to(x.dtype), vc.to(x.dtype),
-                                causal=False, chunk=cfg.attn_chunk)
-        x = x + linear_fwd(p["cross"]["wo"], o2.reshape(B, S, -1))
+            o2 = attn.local_heads(lambda q, k, v: attn.attention(
+                q, k.to(q.dtype), v.to(q.dtype), causal=False,
+                chunk=cfg.attn_chunk), q2, kc, vc,
+                n_kv_heads=cfg.n_kv_heads)
+        x = _pin(cfg, x + linear_fwd(p["cross"]["wo"], o2))
     h = norm_fwd(cfg.norm, p["norm2"], x, cfg.norm_eps)
     y, _ = _ffn(p, cfg, h)
-    return x + y, cache_layer
+    return _pin(cfg, x + y), cache_layer
 
 
 def _attn_slot(p: dict, cfg: ModelConfig, x: torch.Tensor, angles,
@@ -581,8 +668,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict
         for i in range(cfg.n_layers):
             k2, v2 = _cross_kv(_layer(params["blocks"], i)["cross"], cfg,
                                enc_out)
-            cross["k"][i].copy_(k2)
-            cross["v"][i].copy_(v2)
+            ctx.write(cross["k"][i], k2)
+            ctx.write(cross["v"][i], v2)
     x = _run_cached(params, cfg, x, angles, cache, decode=False)
     cache["pos"] = cache["pos"] + x.shape[1]
     return _head(params, cfg, x[:, -1:]), cache
@@ -599,7 +686,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         # text rope position: patches occupy grid positions, text restarts
         # at max(patch_grid) (M-RoPE); cache["pos"] counts patches + text
         pos = pos - cfg.n_patches + int(max(cfg.patch_grid))
-    angles = _angles_for(cfg, pos)
+    angles = _like(_angles_for(cfg, pos), x)
     x = _run_cached(params, cfg, x, angles, cache, decode=True)
     cache["pos"] = cache["pos"] + 1
     return _head(params, cfg, x), cache

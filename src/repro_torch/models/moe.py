@@ -11,10 +11,9 @@ Port of `repro.models.moe`, step for step:
   5. a gather back at min(rank, C − 1), times keep = rank < C, combined
      with the top-k gate weights, plus the shared expert.
 
-A Switch-style load-balance loss is returned alongside.  The reference
-pins the buffer's sharding between the steps
-(`sharding.ctx.constrain_axis`); on one device that changes nothing, and
-it is left out.  The sort, scatter and gather are XLA ops in the
+A Switch-style load-balance loss is returned alongside.  The buffer's
+sharding is pinned between the steps as the reference pins it
+(`sharding.ctx.constrain_axis`, a no-op on one device).  The sort, scatter and gather are XLA ops in the
 reference, outside any Pallas kernel, and plain PyTorch here.
 """
 from __future__ import annotations
@@ -24,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from ..sharding import ctx
 from .config import ModelConfig
 from .layers import (dtype_of, init_linear, init_mlp, linear_fwd, mlp_fwd,
                      normal, silu)
@@ -113,20 +113,19 @@ def _grouped(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                       for e in range(0, w.shape[0], step)])
 
 
-def moe_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar)."""
+def _route(cfg: ModelConfig, logits: torch.Tensor, dtype: torch.dtype):
+    """Top-k routing of every token's (T, E) float32 logits: the gate
+    weights (T, K) in ``dtype``, the assignments' experts (T·K,), ranks in
+    their experts, keep flags, buffer slots (a dropped assignment goes to
+    one scrap row past the buffer, so no host sync picks the kept ones
+    out), and the load-balance loss."""
     m = cfg.moe
-    B, S, d = x.shape
-    T = B * S
+    T = logits.shape[0]
     E, K = m.n_experts, m.top_k
-    xf = x.reshape(T, d)
-
-    logits = linear_fwd(p["router"], xf).to(torch.float32)         # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = top_k(probs, K)                                    # (T, K)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    gate = gate.to(x.dtype)
+    gate = gate.to(dtype)
 
     # Switch load-balance loss: E * sum_e f_e * p_e
     me = torch.mean(probs, dim=0)                                  # (E,)
@@ -137,24 +136,69 @@ def moe_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor
     C = capacity(cfg, T)
     pos = positions_in_expert(flat_e, E)                           # (T*K,)
     keep_b = pos < C
-    # the add into zeros; a dropped assignment goes to one scrap row past
-    # the buffer, so no host sync picks the kept ones out
     slot = torch.where(keep_b, flat_e * C + pos, E * C)
+    return gate, flat_e, pos, keep_b, slot, aux
+
+
+def _dispatch(xf: torch.Tensor, slot: torch.Tensor, E: int, C: int,
+              K: int) -> torch.Tensor:
+    """The add of every assignment's token into a zeroed (E, C, d)
+    buffer (the scrap row dropped)."""
     xrep = torch.repeat_interleave(xf, K, dim=0)                   # (T*K, d)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((E * C + 1, xf.shape[1]), dtype=xf.dtype,
+                      device=xf.device)
     buf.index_add_(0, slot, xrep)
-    buf = buf[:E * C].view(E, C, d)
+    return buf[:E * C].view(E, C, xf.shape[1])
 
-    h_g = _grouped(buf, p["w_gate"])
-    h_u = _grouped(buf, p["w_up"])
-    y_buf = _grouped(silu(h_g) * h_u, p["w_down"])                 # (E, C, d)
 
-    # gather back; dropped assignments contribute y * 0
-    keep = keep_b.to(x.dtype)
+def _experts(buf: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+    """The grouped expert products 'ecd,edf->ecf' -> (E, C, d)."""
+    h_g = _grouped(buf, w_gate)
+    h_u = _grouped(buf, w_up)
+    return _grouped(silu(h_g) * h_u, w_down)
+
+
+def _combine(y_buf: torch.Tensor, flat_e, pos, keep_b, gate) -> torch.Tensor:
+    """The gather back at min(rank, C − 1); dropped assignments contribute
+    y · 0; the top-k sum weighted by the gate -> (T, d)."""
+    C, d = y_buf.shape[1:]
+    keep = keep_b.to(y_buf.dtype)
     out_rep = y_buf[flat_e, torch.clamp(pos, max=C - 1).long()] \
         * keep[:, None]
-    out = (out_rep.reshape(T, K, d) * gate[..., None]).sum(dim=1)
-    out = out.reshape(B, S, d)
+    T, K = gate.shape
+    return (out_rep.reshape(T, K, d) * gate[..., None]).sum(dim=1)
+
+
+def moe_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux_loss float32 scalar).
+
+    On a mesh (DTensor ``x``) the routing runs replicated over every
+    token, as capacity and ranks are global; the buffer is filled with
+    its d dim on "model", re-sharded expert-major for the products, and
+    back to d-major for the combine: the reference's three pins
+    (`sharding.ctx.constrain_axis`)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, K = m.n_experts, m.top_k
+    C = capacity(cfg, T)
+    xf = x.reshape(T, d)
+
+    logits = linear_fwd(p["router"], xf).to(torch.float32)         # (T, E)
+    gate, flat_e, pos, keep_b, slot, aux = ctx.local(
+        lambda lg: _route(cfg, lg, x.dtype), (logits,), [None], None)
+
+    buf = ctx.local(lambda xf, sl: _dispatch(xf, sl, E, C, K), (xf, slot),
+                    [{1: "model"}, None], {2: "model"})
+    buf = ctx.constrain_axis(buf, 0, "model")
+    ws = [ctx.weight(p[k]) for k in ("w_gate", "w_up", "w_down")]
+    y_buf = ctx.local(_experts, [buf] + ws, [{0: "model"}] * 4,
+                      {0: "model"})
+    y_buf = ctx.constrain_axis(y_buf, 2, "model")
+    out = ctx.local(_combine, (y_buf, flat_e, pos, keep_b, gate),
+                    [{2: "model"}, None, None, None, None], {1: "model"})
+    out = ctx.constrain_batch(out.reshape(B, S, d), 0)
 
     if "shared" in p:
         out = out + mlp_fwd(cfg.mlp, p["shared"], x)

@@ -11,8 +11,10 @@ model does not call them.
 
 `associative_scan` is the recursion of `jax.lax.associative_scan`, so the
 bfloat16 scan elements of falcon-mamba (``scan_dtype="bfloat16"``) are
-rounded in the reference's order.  The reference's `constrain_batch`
-sharding hints change no value and are left out.
+rounded in the reference's order.  The reference pins the scans'
+operands' batch dim (`constrain_batch`); on a device mesh the port runs
+each mixer in a local region with its batch on the data axes
+(`models.model._mixer`), which is that pin, and a no-op on one device.
 
 Decode paths keep a conv ring state and the SSM state: O(1) per token.
 """

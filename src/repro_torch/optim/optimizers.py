@@ -22,12 +22,14 @@ import torch
 
 from .. import tree as tree_util
 from ..core.async_update import powf
+from ..sharding import ctx
 
 
 def _weak(x: float, like: torch.Tensor) -> torch.Tensor:
     """A Python float as jnp types it against ``like``: rounded to its
     dtype (a 0-d tensor, so it does not promote ``like``)."""
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    return ctx.like(torch.tensor(x, dtype=like.dtype, device=like.device),
+                    like)
 
 
 def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
