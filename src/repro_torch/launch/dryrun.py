@@ -48,6 +48,7 @@ from .. import tree as tree_util
 from ..configs import get_config, get_smoke_config, long_context_variant
 from ..core import aldp
 from ..core.fed_step import FedStepConfig
+from ..models import ssm
 from . import roofline as rl
 from .cost import step_cost
 from .shapes import LONG_SKIP, SHAPES, input_specs
@@ -73,10 +74,16 @@ def resolve_config(arch: str, shape_name: str, ssm_chunk: int = 0,
 
 
 MESHES = ("1", "16x16", "2x16x16")
-# what a mesh record of a Mamba family prices (`models.model._mixer`)
-MIXER_ON_MESH = ("replicated on 'model': each model rank gathers the "
-                 "mixer's weights and runs the whole mixer for its batch "
-                 "block, so the mixers' work is repeated model-axis times")
+# the route a mesh record of a Mamba family prices (`models.model._mixer`)
+MIXER_TP = ("tensor parallel on 'model': each model rank runs its block of "
+            "d_inner (Mamba2: of the heads) for its batch block; x_proj's "
+            "(Mamba1) or the gated norm's (Mamba2) partial sums and "
+            "out_proj's are all-reduced (models.ssm.mixer_tp)")
+MIXER_REPLICATED = ("replicated on 'model', which does not divide d_inner "
+                    "(Mamba2: the heads): each model rank gathers the "
+                    "mixer's weights and runs the whole mixer for its batch "
+                    "block, so the mixers' work is repeated model-axis "
+                    "times")
 
 
 def build_fcfg(local_steps: int = 4, n_nodes: int = FED_NODES
@@ -132,8 +139,6 @@ def run_dryrun(arch: str, shape_name: str, *, mesh: str = "1",
         return rec
     if seq_parallel:
         rec["seq_parallel"] = True
-    if n_dev > 1 and cfg.family in ("ssm", "hybrid"):
-        rec["mamba_mixer"] = MIXER_ON_MESH
     shape = SHAPES[shape_name]
     if n_dev > 1:
         kind, args, cost, arg_bytes, seconds = _trace_mesh(
@@ -253,6 +258,11 @@ def _trace_mesh(rec, cfg, shape, step, local_steps, multi_pod):
     with fake_world(512 if multi_pod else 256):
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
         dp = dp_axes_for(mesh)
+        if cfg.family in ("ssm", "hybrid"):
+            rec["mamba_mixer"] = (
+                MIXER_TP if ssm.tp_blocks(cfg, mesh.size(
+                    mesh.mesh_dim_names.index("model")))
+                else MIXER_REPLICATED)
         fcfg = None
         if shape.kind == "train":
             sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))

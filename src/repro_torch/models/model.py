@@ -49,10 +49,14 @@ residual stream is pinned (batch on the data axes, replicated on
 "model", or with ``seq_parallel`` the sequence on "model") after every
 residual add and block, where the reference pins it between blocks;
 attention (K6, the plain version and the cache paths) runs on each
-rank's (batch, heads) block in a local region (`attention.local_heads`),
-the Mamba mixers on each rank's batch block (`_mixer`), the MoE as
-`moe_fwd` says; the loss gathers the vocab.  Off a mesh every pin is a
-no-op.
+rank's (batch, heads) block in a local region (`attention.local_heads`);
+the Mamba mixers run tensor parallel over "model" on each rank's batch
+block and block of d_inner (Mamba2: of the heads), their out_proj's
+partial sums reduced by the residual pin, their decode states kept in
+`cache_pspecs`' placements (`_mixer`, `ssm.mixer_tp`; replicated on
+"model" with their weights gathered where it does not cut them into
+whole blocks); the MoE runs as `moe_fwd` says; the loss gathers the
+vocab.  Off a mesh every pin is a no-op.
 
 Serving with a float32 cache under a bfloat16 model (what
 `launch.serve` does) promotes as jnp does: a decode attention reads
@@ -244,14 +248,26 @@ def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig,
             "mixer": init(gen, cfg, cfg.param_dtype, device)}
 
 
-def _mixer(fn: Callable, p: dict, cfg: ModelConfig, h: torch.Tensor,
-           state: Optional[dict]) -> Tuple[torch.Tensor, dict]:
-    """A Mamba mixer ``fn(p, cfg, h, state) -> (y, state)``; on a mesh,
-    on each rank's batch block with the mixer's weights gathered (the
-    chunked scans run per batch row and channel, outside any DTensor
-    operation; the states come back batch-sharded)."""
+def _mixer(p: dict, cfg: ModelConfig, h: torch.Tensor,
+           state: Optional[dict], decode: bool) -> Tuple[torch.Tensor, dict]:
+    """A Mamba mixer's forward (``decode``: one decode step) -> (y, state).
+    On a mesh whose "model" axis cuts d_inner (Mamba2: the heads) into
+    whole blocks, tensor parallel (`ssm.mixer_tp`: y a partial sum on
+    "model", the states handed back in the placements they came in);
+    otherwise on each rank's batch block with the mixer's weights
+    gathered (the chunked scans run per batch row and channel, outside
+    any DTensor operation; the states come back batch-sharded)."""
+    m1 = cfg.ssm.kind == "mamba1"
+    fn = (ssm.mamba1_decode if m1 else ssm.mamba2_decode) if decode \
+        else (ssm.mamba1_fwd if m1 else ssm.mamba2_fwd)
     if not ctx.is_dtensor(h):
         return fn(p, cfg, h, state)
+    if "model" in h.device_mesh.mesh_dim_names \
+            and ssm.tp_blocks(cfg, ctx.model_size(h)):
+        y, new = ssm.mixer_tp(p, cfg, h, state, decode)
+        if state is not None:
+            new = {k: ctx.placed_as(v, state[k]) for k, v in new.items()}
+        return y, new
     return ctx.local(lambda p, h, st: fn(p, cfg, h, st), (p, h, state),
                      [None, {0: "dp"}, {0: "dp"}], ({0: "dp"}, {0: "dp"}))
 
@@ -261,18 +277,23 @@ def _mamba_block_fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
                      ) -> Tuple[torch.Tensor, dict]:
     x = _pin(cfg, x)
     h = norm_fwd(cfg.norm, p["norm"], x, cfg.norm_eps)
-    fwd = ssm.mamba1_fwd if cfg.ssm.kind == "mamba1" else ssm.mamba2_fwd
-    y, new_state = _mixer(fwd, p["mixer"], cfg, h, state)
-    return _pin(cfg, x + y), new_state
+    y, new_state = _mixer(p["mixer"], cfg, h, state, decode=False)
+    return _residual(cfg, x, y), new_state
 
 
 def _mamba_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                         state: dict) -> Tuple[torch.Tensor, dict]:
     h = norm_fwd(cfg.norm, p["norm"], x, cfg.norm_eps)
-    dec = ssm.mamba1_decode if cfg.ssm.kind == "mamba1" \
-        else ssm.mamba2_decode
-    y, new_state = _mixer(dec, p["mixer"], cfg, h, state)
-    return _pin(cfg, x + y), new_state
+    y, new_state = _mixer(p["mixer"], cfg, h, state, decode=True)
+    return _residual(cfg, x, y), new_state
+
+
+def _residual(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """x + y pinned, a tensor-parallel mixer's partial sums in y reduced
+    by the pin first (DTensor would add a replicated x to a partial sum
+    as x / m on each of m ranks)."""
+    return _pin(cfg, x + _pin(cfg, y))
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ inputs are redistributed to a named layout, the function runs on each
 rank's local tensors (plain tensors: a DTensor never reaches a CUDA
 extension), and its outputs are wrapped back with the layout's
 placements.  A layout maps tensor dims to "dp" (the context's
-data-parallel axes) or "model".
+data-parallel axes) or "model"; an output's layout may also name an axis
+under `PARTIAL`, whose ranks then hold partial sums (a row-parallel
+product's) that DTensor's redistribution reduces, forward and backward.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 _state = threading.local()
+PARTIAL = "partial"     # layout key: the output is a partial sum on that axis
 
 
 def _get():
@@ -173,13 +176,19 @@ def placements(mesh, layout: Optional[Dict[int, str]], shape) -> tuple:
     names = _names(mesh)
     pl = [Replicate() for _ in names]
     for dim, which in (layout or {}).items():
-        axes = dp_axes_of(mesh) if which == "dp" else (which,)
-        axes = tuple(a for a in axes if a in names)
-        if not axes or shape[dim] % _size(mesh, axes) != 0:
+        axes = _axes(mesh, which)
+        if dim == PARTIAL or not axes or shape[dim] % _size(mesh, axes):
             continue
         for a in axes:
             pl[names.index(a)] = Shard(dim)
     return tuple(pl)
+
+
+def _axes(mesh, which: str) -> Tuple[str, ...]:
+    """The mesh axes a layout entry names: the data-parallel ones for
+    "dp", else the axis itself (none when the mesh lacks it)."""
+    axes = dp_axes_of(mesh) if which == "dp" else (which,)
+    return tuple(a for a in axes if a in _names(mesh))
 
 
 def to_layout(x, layout: Optional[Dict[int, str]]):
@@ -200,6 +209,14 @@ def weight(w):
     pl = tuple(p if n == "model" and not p.is_partial() else Replicate()
                for n, p in zip(_names(w.device_mesh), w.placements))
     return _redistribute(w, pl)
+
+
+def placed_as(x, ref):
+    """``x`` redistributed to ``ref``'s placements (a state handed back in
+    the placement it came in); as it is unless both are DTensors."""
+    if not (is_dtensor(x) and is_dtensor(ref)):
+        return x
+    return _redistribute(x, ref.placements)
 
 
 def like(t: torch.Tensor, ref):
@@ -247,17 +264,44 @@ def _tleaves(x):
     return [x]
 
 
+def _per_leaf(lay) -> bool:
+    """Is ``lay`` a tree of layouts keyed as its arg's dict (rather than
+    one layout for every leaf)?"""
+    return isinstance(lay, dict) and any(
+        isinstance(k, str) and k != PARTIAL for k in lay)
+
+
+def _lmap(fn, x, lay):
+    """``fn(leaf, its layout)`` over a tensor or dict tree ``x``, with one
+    layout for every leaf or a tree of them (`_per_leaf`)."""
+    if isinstance(x, dict):
+        return {k: _lmap(fn, v, lay[k] if _per_leaf(lay) else lay)
+                for k, v in x.items()}
+    return fn(x, lay)
+
+
+def _lpairs(x, lay):
+    """(leaf, its layout) pairs of ``x``, as `_lmap` pairs them."""
+    if isinstance(x, dict):
+        return [pr for k, v in x.items()
+                for pr in _lpairs(v, lay[k] if _per_leaf(lay) else lay)]
+    return [(x, lay)]
+
+
 def local(fn: Callable, args: Sequence, layouts: Sequence,
           out_layouts):
     """Run ``fn`` on each rank's local tensors.
 
     ``args`` (tensors, or dict trees of them) are redistributed to
-    ``layouts`` (one per arg, applied to every leaf; non-tensors and
-    plain tensors pass as they are), ``fn`` gets the local tensors, and
-    its outputs (a tensor, a dict tree, or a tuple of them) come back as
-    DTensors in ``out_layouts`` (one layout, or one per output).  An
-    output dim named "dp" or "model" is sharded when that axis sharded an
-    input, so a dim too small to split stays replicated in and out.
+    ``layouts`` (one per arg: a layout for every leaf, or a tree of
+    layouts keyed as the arg's dicts; non-tensors and plain tensors pass
+    as they are), ``fn`` gets the local tensors, and its outputs (a
+    tensor, a dict tree, or a tuple of them) come back as DTensors in
+    ``out_layouts`` (one layout, or one per output, each a layout or a
+    tree of them).  An output dim named "dp" or "model" is sharded when
+    that axis sharded an input, so a dim too small to split stays
+    replicated in and out; an output whose layout names an axis under
+    `PARTIAL` holds a partial sum on it when that axis sharded an input.
 
     Autograd: an input replicated on an axis that shards another input
     is used by ranks that see different data, so its grad comes back as
@@ -271,20 +315,19 @@ def local(fn: Callable, args: Sequence, layouts: Sequence,
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = ref.device_mesh
     names = _names(mesh)
-    moved = [_tmap(lambda y, lay=lay: to_layout(y, lay), a)
-             for a, lay in zip(args, layouts)]
+    moved = [_lmap(to_layout, a, lay) for a, lay in zip(args, layouts)]
     used, varying = set(), set()
     for a, lay in zip(moved, layouts):
-        for y in _tleaves(a):
+        for y, ly in _lpairs(a, lay):
             if not is_dtensor(y):
                 continue
             for i, p in enumerate(y.placements):
                 if p.is_shard():
                     varying.add(i)
-            for dim, which in (lay or {}).items():
-                axes = dp_axes_of(mesh) if which == "dp" else (which,)
-                if any(y.placements[names.index(x)] == Shard(dim)
-                       for x in axes if x in names):
+            for dim, which in (ly or {}).items():
+                if dim != PARTIAL and any(
+                        y.placements[names.index(x)] == Shard(dim)
+                        for x in _axes(mesh, which)):
                     used.add(which)
 
     def unwrap(y):
@@ -303,18 +346,16 @@ def local(fn: Callable, args: Sequence, layouts: Sequence,
         for dim, which in (lay or {}).items():
             if which not in used:
                 continue
-            axes = dp_axes_of(mesh) if which == "dp" else (which,)
-            for x in axes:
-                if x in names:
-                    pl[names.index(x)] = Shard(dim)
+            for x in _axes(mesh, which):
+                pl[names.index(x)] = Partial() if dim == PARTIAL \
+                    else Shard(dim)
         return DTensor.from_local(t, mesh, pl, run_check=False)
 
     if isinstance(out, tuple):
         lays = out_layouts if isinstance(out_layouts, (list, tuple)) \
             else [out_layouts] * len(out)
-        return tuple(_tmap(lambda t, lay=lay: wrap(t, lay), o)
-                     for o, lay in zip(out, lays))
-    return _tmap(lambda t: wrap(t, out_layouts), out)
+        return tuple(_lmap(wrap, o, lay) for o, lay in zip(out, lays))
+    return _lmap(wrap, out, out_layouts)
 
 
 def embedding(w, tokens):
@@ -378,6 +419,4 @@ def same_placement(a, b) -> bool:
 def write(dst, src) -> None:
     """``dst.copy_(src)`` with ``src`` first redistributed to ``dst``'s
     placements (a cache slot written from a step's layout)."""
-    if is_dtensor(dst) and is_dtensor(src):
-        src = _redistribute(src, dst.placements)
-    dst.copy_(src)
+    dst.copy_(placed_as(src, dst))

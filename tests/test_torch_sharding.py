@@ -15,7 +15,9 @@
   mesh's.
 * The mesh dry run, in a subprocess under a fake process group of 256 or
   512 ranks: the record's mesh, per-device memory below the one-device
-  record's, and the fed step's collectives.
+  record's, and the fed step's collectives; the Mamba families' records
+  price their mixers tensor parallel on "model" where it cuts them into
+  whole blocks (`mamba_mixer`), and replicated where it does not.
 """
 import json
 import os
@@ -143,7 +145,8 @@ def test_ctx_is_a_no_op_off_a_mesh():
     assert ctx.active_mesh() is None
     for y in (ctx.constrain_batch(x, 0), ctx.constrain_axis(x, 2, "model"),
               ctx.weight(x), ctx.heads(x, True),
-              ctx.like(x, x), ctx.to_layout(x, {0: "dp"})):
+              ctx.like(x, x), ctx.to_layout(x, {0: "dp"}),
+              ctx.placed_as(x, x)):
         assert y is x
     assert ctx.constrain_batch({"a": x})["a"] is x
     assert ctx.local(lambda a, b: a + b, (x, x), [None, None], None) \
@@ -338,3 +341,64 @@ def test_mesh_dryruns_under_a_fake_group(one_thread):
     assert coll["count_by_type"].get("all_gather_into_tensor", 0) > 0
     assert sum(coll["bytes_by_type"].values()) == \
         coll["total_bytes_per_device"]
+
+
+# A dry run of a config changed from the arch's smoke config: argv arch,
+# shape, mesh, ssm chunk, then JSON {field: value} for the config and
+# {field: value} for its SSMConfig.
+_CHANGED_DRYRUN = """
+import dataclasses, json, sys
+from repro_torch.launch import dryrun
+arch, shape, mesh, chunk = sys.argv[1:5]
+top, ssm = json.loads(sys.argv[5]), json.loads(sys.argv[6])
+real = dryrun.resolve_config
+def resolve(*a, **k):
+    cfg = real(*a, **k).replace(**top)
+    return cfg.replace(ssm=dataclasses.replace(cfg.ssm, **ssm))
+dryrun.resolve_config = resolve
+print(json.dumps(dryrun.run_dryrun(arch, shape, mesh=mesh, smoke=True,
+                                   ssm_chunk=int(chunk)), default=str))
+"""
+
+
+def test_mamba_mesh_dryruns_price_the_mixer_tensor_parallel(one_thread):
+    """On 16x16 the Mamba mixers split over "model": falcon-mamba's smoke
+    ``prefill_32k`` counts what the model needs (useful_flops_ratio at
+    least 0.5; replicated on "model", each rank ran its whole mixer and
+    the record read 0.079), and so does zamba2's without its shared
+    attention block: at 32,768 tokens the smoke config's attention (4
+    heads, which 16 does not cut, so replicated on "model") is 93% of
+    the flops, and no mixer route moves it.  A zamba2 whose 8 heads 16
+    does not divide traces its mixers replicated, and says so.  The scan
+    chunks are raised so the trace walks fewer of them (Mamba1's counted
+    matmul flops do not depend on the chunk; Mamba2's grow with it, so
+    its ratio read 1.07 at chunk 64 and 0.85 at 256)."""
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    runs = {"falcon": ("falcon-mamba-7b", "prefill_32k", "512", {}, {}),
+            "zamba2": ("zamba2-1.2b", "prefill_32k", "256",
+                       {"attn_every": 0}, {}),
+            "zamba2_as_is": ("zamba2-1.2b", "decode_32k", "0", {}, {}),
+            "indivisible": ("zamba2-1.2b", "decode_32k", "0", {},
+                            {"head_dim": 64})}
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-c", _CHANGED_DRYRUN, arch, shape, "16x16",
+         chunk, json.dumps(top), json.dumps(ssm)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+        for k, (arch, shape, chunk, top, ssm) in runs.items()}
+    recs = {}
+    for k, p in procs.items():
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, out[-3000:] + err[-3000:]
+        recs[k] = json.loads(out.strip().splitlines()[-1])
+    for k, rec in recs.items():
+        assert rec["status"] == "ok" and rec["mesh"] == "16x16", k
+        tp = rec["mamba_mixer"].startswith("tensor parallel on 'model'")
+        assert tp == (k != "indivisible"), (k, rec["mamba_mixer"])
+    assert recs["indivisible"]["mamba_mixer"].startswith(
+        "replicated on 'model'")
+    for k in ("falcon", "zamba2"):
+        assert recs[k]["roofline"]["useful_flops_ratio"] >= 0.5, \
+            (k, recs[k]["roofline"])
+    # the tensor-parallel mixers' reductions are one rank's collectives
+    assert recs["falcon"]["collectives"]["count_by_type"]["all_reduce"] \
+        >= 2 * 2

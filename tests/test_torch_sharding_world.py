@@ -22,7 +22,12 @@ interpret mode).  Cases:
 * ``fed_train`` (4 nodes, two per data rank): Alg. 2's accuracies, its
   threshold and the count it keeps equal (2 of 4), the new params close;
 * the noise of `aldp.add_gaussian_noise` on params placed over both mesh
-  axes: bit for bit the unsharded draw and the reference's.
+  axes: bit for bit the unsharded draw and the reference's;
+* the Mamba mixers tensor parallel on "model" (`models.ssm.mixer_tp`):
+  a spy on the chunked scans and the decode steps reads each rank's
+  block (the smoke configs' d_inner 512 and 16 heads over 2 model
+  ranks), once a layer, and prefill and decode hand their SSM states
+  back in `cache_pspecs`' placements.
 
 Limits (float32):
 
@@ -265,6 +270,7 @@ RANK_SCRIPT = textwrap.dedent("""
     from repro_torch.core import aldp
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import ssm
     from repro_torch.sharding import ctx, rules
     with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
         inp = pickle.load(f)
@@ -272,6 +278,18 @@ RANK_SCRIPT = textwrap.dedent("""
     exec(inp["fns"], ns)
     mesh = make_host_mesh(2, 2, device_type="cpu")
     dp = steps.dp_axes_for(mesh)
+    # the channels (Mamba2: heads) each scan and decode step ran on
+    widths = []
+    def spy(name, width):
+        real = getattr(ssm, name)
+        def call(*a):
+            widths.append(int(width(*a)))
+            return real(*a)
+        setattr(ssm, name, call)
+    spy("_m1_chunked_scan", lambda x, *a: x.shape[-1])
+    spy("_m2_chunked_scan", lambda x, *a: x.shape[2])
+    spy("_m1_step_back", lambda p, cfg, xc, *a: xc.shape[-1])
+    spy("_m2_step_ssd", lambda p, cfg, z, x, bc, dt, h, *a: h.shape[1])
     out = {}
     for case, (arch, kind, variant, args) in inp["cases"].items():
         cfg = ns["_cfg"](arch, variant)
@@ -283,10 +301,20 @@ RANK_SCRIPT = textwrap.dedent("""
             cfg, kind, spmd_axes=dp if kind == "fed_train" else None,
             param_shardings=(rules.shardings_for(mesh, specs[0])
                              if kind == "plain_train" else None))
+        widths.clear()
+        calls = ssm.mixer_tp.calls
         with ns["_Routing"](inp["routing"].get(case)) as r, \\
                 ctx.mesh_context(mesh, dp):
             res = step(*placed)
         out[case] = (ns["_host"](res), r.moved)
+        if cfg.family in ("ssm", "hybrid"):
+            states = None
+            if kind in ("prefill", "decode"):
+                want = rules.shardings_for(mesh, specs[2])["ssm"]
+                states = {k: (str(tuple(v.placements)), str(want[k]))
+                          for k, v in res[1]["ssm"].items()}
+            out[("mixer",) + case] = (sorted(set(widths)),
+                                      ssm.mixer_tp.calls - calls, states)
     # the noise on params placed over both mesh axes
     arch, kind, variant, args = inp["cases"][("dense", "fed_train")]
     cfg = ns["_cfg"](arch)
@@ -440,6 +468,33 @@ def test_sharded_step_matches_the_reference(world, fam, kind):
                 REF_PARAM_TOL)
     _check_step(world["out"][(fam, kind)][0], want, kind,
                 REF_LOGIT_TOL + LOGIT_TOL, REF_PARAM_TOL + PARAM_TOL)
+
+
+MAMBA_CASES = [(fam, kind) for fam in ("ssm", "hybrid") for kind in KINDS]
+
+
+@pytest.mark.parametrize("fam,kind", MAMBA_CASES)
+def test_mamba_mixer_runs_on_its_channel_block(world, fam, kind):
+    """Each rank's scans (or decode steps) ran on d_inner / 2 channels
+    (Mamba2: half the heads), through `ssm.mixer_tp` once a layer."""
+    widths, calls, _ = world["out"][("mixer", fam, kind)]
+    cfg = _cfg(ARCHS[fam])
+    blocks = cfg.d_inner if fam == "ssm" else cfg.d_inner // cfg.ssm.head_dim
+    assert calls == cfg.n_layers
+    assert widths == [blocks // 2]
+
+
+@pytest.mark.parametrize("fam,kind", [c for c in MAMBA_CASES
+                                      if c[1] in ("prefill", "decode")])
+def test_mamba_states_come_back_in_cache_placements(world, fam, kind):
+    """Prefill and decode return every SSM state leaf ("h" split on
+    d_inner or heads, Mamba2's "conv" on its even blocks of conv_dim) in
+    `cache_pspecs`' placements, as they came in: batch on "data", a
+    channel dim on "model"."""
+    states = world["out"][("mixer", fam, kind)][2]
+    assert set(states) == {"h", "conv"}
+    for got, want in states.values():
+        assert got == want and got.count("Shard") == 2
 
 
 def test_sharded_fed_round_matches_unsharded(world):
