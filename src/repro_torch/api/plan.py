@@ -1,9 +1,7 @@
 """Spec -> plan: validate cross-field constraints once, select the engine.
 
 Port of `repro.api.plan`: the same validation with the same `SpecError`
-messages, then one more gate — a spec that asks for a feature the port
-does not have yet raises NotImplementedError naming its ROADMAP.md item
-(nothing falls back silently to another path).
+messages and the same plans.
 
 `compile_plan` is the single choke point between a declarative
 `ExperimentSpec` and execution: it checks every cross-field constraint
@@ -492,25 +490,9 @@ def compile_plan(spec: ExperimentSpec) -> ExperimentPlan:
                    "sequential": "eq6_arrival_mix",
                    "buffered": "fedbuff_window_mix"}[mixing])
 
-    require_ported(spec)
     return ExperimentPlan(
         spec=spec, mode=mode, engine=engine, mixing=mixing,
         mesh_devices=mesh_devices, sigma=sigma, detect_window=detect_window,
         total_arrivals=spec.rounds * f.n_nodes, accountant=sigma > 0,
         key_mode="sequential", stages=tuple(stages),
         net_codec=net.codec if net.enabled else None)
-
-
-def require_ported(spec: ExperimentSpec) -> None:
-    """Raise NotImplementedError for a validated spec that needs a part of
-    the reference the port does not have yet (ROADMAP.md, open items)."""
-    topo = spec.topology
-
-    def missing(what: str, item: str) -> None:
-        raise NotImplementedError(
-            f"{what} is not ported to repro_torch yet (ROADMAP.md: {item})")
-
-    if topo.kind == "sequential":
-        missing("topology.kind='sequential' (the reference loops)",
-                "the sequential reference loops are parity oracles of the "
-                "JAX package only")

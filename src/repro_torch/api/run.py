@@ -1,34 +1,40 @@
-"""Execute an `ExperimentPlan`: plan -> engine -> `RunReport`.
+"""Execute an `ExperimentPlan`: plan -> stepper -> `RunReport`.
 
-Port of the fleet-engine half of `repro.api.run`: `make_engine`, the sync
-and async record steppers, `init_state`, `make_stepper`, `execute` and
-`run`, and the per-run observability session (`_ObsSession`).  One
-record per barrier round (sync) or per n_nodes arrivals (async), exactly
-as the reference emits them.  A spec whose `NetworkSpec` names a codec
-attaches a `net.NetSim` to the engine: the records then carry encoded
-bytes (``bytes_source="encoded"``) and `RunReport.net` the trace
-summary.  A spec with ``obs.enabled`` runs inside a tracer scope (events,
-record streams, health probes); a spec with a `SimSpec` runs through
-`sim.SimService`.  Everything runs on ``device`` ("cuda" unless the
-caller passes "cpu").  A plan with ``topology.kind="mesh"`` shards the
-node axis over the ranks of the initialised default `torch.distributed`
-group (`fleet.FleetMesh`): every rank runs `run` in its own process and
-returns the same `RunReport`, and only rank 0 writes files.
+Port of `repro.api.run`: `make_engine`, the fleet engines' sync and
+async record steppers, the sequential reference loops
+(`_SequentialRunner`, ``topology.kind="sequential"``: one dispatch per
+node update, a barrier loop for sync schemes and the paper's
+per-arrival event loop for async ones), `init_state`, `make_stepper`,
+`execute` and `run`, and the per-run observability session
+(`_ObsSession`).  One record per barrier round (sync) or per n_nodes
+arrivals (async), exactly as the reference emits them.  A spec whose
+`NetworkSpec` names a codec attaches a `net.NetSim` to the engine: the
+records then carry encoded bytes (``bytes_source="encoded"``) and
+`RunReport.net` the trace summary.  A spec with ``obs.enabled`` runs
+inside a tracer scope (events, record streams, health probes); a spec
+with a `SimSpec` runs through `sim.SimService`.  Everything runs on
+``device`` ("cuda" unless the caller passes "cpu").  A plan with
+``topology.kind="mesh"`` shards the node axis over the ranks of the
+initialised default `torch.distributed` group (`fleet.FleetMesh`): every
+rank runs `run` in its own process and returns the same `RunReport`, and
+only rank 0 writes files.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import heapq
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
-from .. import fleet, prng
+from .. import convert, fleet, prng
 from .. import obs as _obs
 from .. import tree as tree_util
-from ..core import async_update
+from ..core import accumulator as accum
+from ..core import aldp, async_update, detection
 from ..core.accountant import MomentsAccountant
 from ..device import resolve
 from ..fleet import stages as fleet_stages
@@ -202,7 +208,8 @@ class _StreamingHistory(list):
 # ---------------------------------------------------------------------------
 
 def engine_name(plan: ExperimentPlan) -> str:
-    """The report's engine: ``fleet-mesh`` on a mesh topology."""
+    """The report's engine: ``fleet-mesh`` on a mesh topology, else the
+    plan's (``fleet`` or ``sequential``)."""
     return "fleet-mesh" if plan.mesh_devices is not None else plan.engine
 
 
@@ -451,13 +458,276 @@ def _restore_net(net, arrays, meta) -> None:
 
 
 # ---------------------------------------------------------------------------
+# sequential reference loops (one dispatch per node update)
+# ---------------------------------------------------------------------------
+
+def _stack(trees):
+    return tree_util.map(lambda *xs: torch.stack(xs), *trees)
+
+
+class _SequentialRunner:
+    """The per-node upload pipeline and both reference loops over a
+    (plan, population, state) triple: the barrier loop of the sync
+    schemes and the per-arrival event loop of the async ones (Alg. 2's
+    sliding window and Eq. (6) at every arrival).
+
+    Stepper protocol: `step()` emits one `RoundRecord` (a barrier round,
+    or n_nodes arrivals of the event loop); the loop state (clock, arrival
+    heap, dispatched models) lives on the instance, so `sim.SimService`
+    can snapshot and restore it between records.  Every model the loop
+    hands out (a dispatched snapshot, an upload, the global model) is a
+    tensor nothing changes in place: each mix builds a new one.  The
+    DGC residuals stay stacked (N, ...) on the `RunState`, one row per
+    node, updated in place."""
+
+    def __init__(self, plan: ExperimentPlan, pop: Population,
+                 state: RunState, device=None):
+        spec = plan.spec
+        self.plan, self.pop, self.state, self.spec = plan, pop, state, spec
+        self.device = dev = resolve(device)
+        (self.data, n, self.test_data, self.cloud_test, _,
+         self.n_params) = fleet_stages.init_engine_common(
+            pop.params, pop.node_data, pop.test_data, pop.cloud_test,
+            pop.profile, dev)
+        self.rows = torch.arange(n, device=dev)
+        self.acc_fn = pop.acc_fn
+        self.node_time = np.asarray(pop.profile.compute_s, np.float64)
+        self.node_bw = np.asarray(pop.profile.bandwidth_bps, np.float64)
+        self._local_train = fleet_stages.make_local_train(
+            pop.loss_fn, spec.train.local_steps, spec.train.lr,
+            spec.train.batch_size)
+        # the loop owns its residual rows from here on
+        state.residuals = tree_util.map(
+            lambda x: x.to(dev, torch.float32).clone(), state.residuals)
+        # -- stepper loop state -------------------------------------------
+        self.emitted = 0
+        self.pre_step = None
+        self.net = None             # no network simulation on these loops
+        if plan.mode == "sync":
+            self.clock = 0.0
+        else:
+            self.version = 0
+            # (arrival_time, node, dispatched_version, seq) heap
+            self.events = []
+            for node in range(n):
+                heapq.heappush(self.events,
+                               (self.node_time[node], node, 0, node))
+            self.dispatched_params = {k: state.params for k in range(n)}
+            self.acc_window: List[float] = []
+            self.seq = n
+            self.processed = 0
+
+    # -- per-node upload pipeline ------------------------------------------
+    def local_sgd(self, node: int, start_params, key) -> Any:
+        """The reference's local training of one node: ``split(key,
+        steps)``, one minibatch draw and one SGD step each (the fleet
+        stage on a cohort of one)."""
+        spec = self.spec
+        idx = fleet_stages.batch_indices(
+            key[None], self.data.sizes[node:node + 1],
+            spec.train.local_steps, spec.train.batch_size, self.device)
+        local = self._local_train(
+            tree_util.map(lambda x: x[None], start_params), self.data.x,
+            self.data.y, self.rows[node:node + 1], idx)
+        return tree_util.map(lambda x: x[0], local)
+
+    def cloud_accuracy(self, params) -> float:
+        """The uploaded model's accuracy on the cloud testing set (§5.4),
+        read on the host."""
+        return float(self.acc_fn(params, *self.cloud_test))
+
+    def node_update(self, node: int, start_params):
+        """Local train -> delta -> [accumulate/sparsify] -> [ALDP] -> ω_new.
+        Returns (uploaded model, upload bytes, cloud-test accuracy)."""
+        plan, spec, state = self.plan, self.spec, self.state
+        state.key, k1, k2 = prng.split(state.key, 3)
+        local = self.local_sgd(node, start_params, k1)
+        delta = tree_util.map(lambda a, b: a - b, local, start_params)
+
+        ratio = spec.compression.sparsify_ratio
+        if ratio < 1.0:
+            row = tree_util.map(lambda r: r[node], state.residuals)
+            delta, new_row, _ = accum.accumulate_and_sparsify(row, delta,
+                                                              ratio)
+            tree_util.map(lambda r, nr: r.copy_(nr), row, new_row)
+            bytes_up = accum.upload_bytes(delta, ratio)
+        else:
+            bytes_up = self.n_params * 4
+
+        if plan.sigma > 0:
+            delta, _ = aldp.aldp_perturb(delta, k2, plan.sigma,
+                                         spec.privacy.clip_s)
+            state.accountant.step()   # accountant exists whenever sigma > 0
+
+        omega_new = tree_util.map(lambda a, b: a + b, start_params, delta)
+        return omega_new, bytes_up, self.cloud_accuracy(omega_new)
+
+    def global_accuracy(self) -> float:
+        return float(self.acc_fn(self.state.params, *self.test_data))
+
+    # -- stepper protocol ---------------------------------------------------
+    @property
+    def done(self) -> bool:
+        if self.plan.mode == "sync":
+            return self.emitted >= self.spec.rounds
+        return self.processed >= self.plan.total_arrivals
+
+    def virtual_time(self) -> float:
+        if self.plan.mode == "sync":
+            return float(self.clock)
+        return float(self.events[0][0])
+
+    def step(self) -> None:
+        if self.pre_step is not None:
+            self.pre_step(self)
+        if self.plan.mode == "sync":
+            self._step_sync()
+        else:
+            self._step_async()
+
+    def finalize(self) -> None:
+        pass        # params/key/residuals already live on the RunState
+
+    # -- synchronous barrier loop (one round per step) ----------------------
+    def _step_sync(self) -> None:
+        spec, state = self.spec, self.state
+        n = self.pop.n_nodes
+        uploads, accs, nbytes = [], [], 0.0
+        for node in range(n):
+            w, b, a = self.node_update(node, state.params)
+            uploads.append(w)
+            accs.append(a)
+            nbytes += b
+        accs = torch.tensor(accs, dtype=torch.float32, device=self.device)
+        if spec.defense.detect:
+            mask, _ = detection.detect(accs, spec.defense.detect_s)
+        else:
+            mask = torch.ones(n, dtype=torch.bool, device=self.device)
+        omega_new = detection.masked_mean(_stack(uploads), mask)
+        state.params = async_update.mix(state.params, omega_new,
+                                        spec.schedule.alpha)
+        comp = float(np.max(self.node_time))         # barrier: slowest
+        comm = float(np.max((nbytes / n) / self.node_bw))  # parallel up
+        self.clock += comp + comm
+        state.history.append(RoundRecord(
+            self.clock, self.emitted, self.global_accuracy(), nbytes, comp,
+            comm, n - int(mask.sum())))
+        self.emitted += 1
+
+    # -- asynchronous per-arrival event loop (n_nodes arrivals per step) ----
+    def _step_async(self) -> None:
+        plan, spec, state = self.plan, self.spec, self.state
+        n = self.pop.n_nodes
+        alpha = spec.schedule.alpha
+        # a record spans n_nodes arrivals, so traffic and time are summed
+        # over the span (steps align with record boundaries)
+        span_bytes = span_comp = span_comm = 0.0
+        span_rejected = 0
+        target = min(self.processed + n, plan.total_arrivals)
+        t_arrive = 0.0
+        while self.processed < target:
+            t, node, v_disp, _ = heapq.heappop(self.events)
+            w, b, a = self.node_update(node, self.dispatched_params[node])
+            comm = float(b / self.node_bw[node])
+            t_arrive = t + comm
+            self.acc_window.append(a)
+            self.acc_window = self.acc_window[-plan.detect_window:]
+            rejected = 0
+            if spec.defense.detect and \
+                    len(self.acc_window) >= spec.defense.detect_warmup:
+                accs = torch.tensor(self.acc_window, dtype=torch.float32,
+                                    device=self.device)
+                thr = detection.detection_threshold(accs,
+                                                    spec.defense.detect_s)
+                if a <= float(thr):
+                    rejected = 1
+            if not rejected:
+                staleness = self.version - v_disp
+                if spec.schedule.staleness_adaptive:
+                    state.params = async_update.mix_stale(
+                        state.params, w, alpha, staleness)
+                else:
+                    state.params = async_update.mix(state.params, w, alpha)
+                self.version += 1
+            self.processed += 1
+            span_bytes += b
+            span_comp += float(self.node_time[node])
+            span_comm += comm
+            span_rejected += rejected
+            # redispatch node with the fresh global model
+            self.dispatched_params[node] = state.params
+            heapq.heappush(self.events,
+                           (t_arrive + self.node_time[node], node,
+                            self.version, self.seq))
+            self.seq += 1
+        state.history.append(RoundRecord(
+            t_arrive, self.version, self.global_accuracy(), span_bytes,
+            span_comp, span_comm, span_rejected))
+        self.emitted += 1
+
+    # -- checkpoint/resume (sim.SimService) ---------------------------------
+    def export_state(self):
+        """The reference runner's snapshot: the same array names, dtypes
+        and meta keys, so either package resumes the other's files."""
+        state, n = self.state, self.pop.n_nodes
+        arrays = {"params": convert.to_numpy(state.params),
+                  "key": np.asarray(state.key, np.uint32),
+                  "residuals": convert.to_numpy(state.residuals)}
+        meta = {"emitted": self.emitted}
+        if self.plan.mode == "sync":
+            meta["clock"] = float(self.clock)
+        else:
+            # the heap is a multiset with a total order (seq is unique), so
+            # any serialization order restores the identical pop sequence
+            ev = sorted(self.events)
+            arrays["heap_t"] = np.asarray([e[0] for e in ev], np.float64)
+            arrays["heap_node"] = np.asarray([e[1] for e in ev], np.int64)
+            arrays["heap_vdisp"] = np.asarray([e[2] for e in ev], np.int64)
+            arrays["heap_seq"] = np.asarray([e[3] for e in ev], np.int64)
+            arrays["dispatched"] = convert.to_numpy(_stack(
+                [self.dispatched_params[i] for i in range(n)]))
+            meta.update(processed=self.processed, version=self.version,
+                        seq=self.seq,
+                        acc_window=[float(a) for a in self.acc_window])
+        return arrays, meta
+
+    def restore_state(self, arrays, meta) -> None:
+        # `convert.to_torch` copies: the loop writes residual rows in
+        # place, never into the snapshot's arrays
+        state, n, dev = self.state, self.pop.n_nodes, self.device
+        state.params = convert.to_torch(arrays["params"], dev)
+        state.key = np.asarray(arrays["key"], np.uint32)
+        state.residuals = convert.to_torch(arrays["residuals"], dev)
+        self.emitted = int(meta["emitted"])
+        if self.plan.mode == "sync":
+            self.clock = float(meta["clock"])
+        else:
+            events = [(float(t), int(nd), int(v), int(s))
+                      for t, nd, v, s in zip(arrays["heap_t"],
+                                             arrays["heap_node"],
+                                             arrays["heap_vdisp"],
+                                             arrays["heap_seq"])]
+            heapq.heapify(events)
+            self.events = events
+            disp = convert.to_torch(arrays["dispatched"], dev)
+            self.dispatched_params = {
+                i: tree_util.map(lambda x, i=i: x[i], disp)
+                for i in range(n)}
+            self.processed = int(meta["processed"])
+            self.version = int(meta["version"])
+            self.seq = int(meta["seq"])
+            self.acc_window = [float(a) for a in meta["acc_window"]]
+
+
+# ---------------------------------------------------------------------------
 # top-level execution
 # ---------------------------------------------------------------------------
 
 def make_stepper(plan: ExperimentPlan, population: Population,
                  state: RunState, device=None):
-    """Build the record stepper a plan selects (engines built here pick up
-    any installed obs tracer — call inside the session scope)."""
+    """Build the record stepper a plan selects: the reference loops for
+    a sequential plan, else a fleet engine's stepper (engines built here
+    pick up any installed obs tracer — call inside the session scope)."""
     if population.n_nodes != plan.spec.fleet.n_nodes:
         raise SpecError(
             f"population has {population.n_nodes} nodes but the plan was "
@@ -470,6 +740,8 @@ def make_stepper(plan: ExperimentPlan, population: Population,
         # which nodes actually run the attack
         tr.instant("fleet.population", n_nodes=population.n_nodes,
                    malicious=sorted(population.malicious_ids))
+    if plan.engine == "sequential":
+        return _SequentialRunner(plan, population, state, device=device)
     eng = make_engine(plan, population, device=device)
     if plan.mode == "sync":
         return _SyncFleetStepper(plan, population, state, eng)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import tree as tree_util
+from ..net.codecs import analytic_upload_bytes
 from .numerics import interp_lo_first
 
 
@@ -61,7 +62,8 @@ def sparsify_leaf(combined: torch.Tensor, ratio: float
 
 
 def accumulate_and_sparsify(residual, grad, ratio: float, node_axis=False):
-    """Returns (upload tree, new residual tree, upload fraction).
+    """Returns (upload tree, new residual tree, upload fraction, a 0-d
+    tensor: reading it waits for the device).
 
     With ``node_axis`` every leaf carries a leading node axis and each
     node's rows are thresholded on their own (the reference vmaps the
@@ -78,5 +80,14 @@ def accumulate_and_sparsify(residual, grad, ratio: float, node_axis=False):
     pairs = [split(c) for c in tree_util.leaves(combined)]
     upload = tree_util.unflatten_like(combined, [p[0] for p in pairs])
     new_residual = tree_util.unflatten_like(combined, [p[1] for p in pairs])
-    nnz = sum(int((u != 0).sum()) for u in tree_util.leaves(upload))
+    nnz = sum((u != 0).sum() for u in tree_util.leaves(upload))
     return upload, new_residual, nnz / tree_util.size(upload)
+
+
+def upload_bytes(tree, ratio: float, bytes_per_value: int = 4,
+                 bytes_per_index: int = 4) -> int:
+    """Analytic wire size of a sparsified upload (values + indices), from
+    `net.codecs.analytic_upload_bytes`, as `fleet.stages.bytes_per_node`
+    prices it."""
+    return analytic_upload_bytes(tree_util.size(tree), ratio,
+                                 bytes_per_value, bytes_per_index)

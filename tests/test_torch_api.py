@@ -1,9 +1,9 @@
 """The port's API layer against `repro.api`.
 
 One spec JSON (schema v6) loads in both packages; contradictory specs
-raise the same `SpecError`; the reference loops, which the port does not
-have, raise NotImplementedError (observability, the simulation service
-and the mesh topology compile into the reference's plans); and the same
+raise the same `SpecError`; observability, the simulation service, the
+mesh topology and the sequential reference loops compile into the
+reference's plans; and the same
 small runs through both `run()`s from one population (the reference's
 params carried over) give the same records: equal t, comm_bytes,
 n_rejected and detections, accuracy within 1/n_test, equal ε and κ,
@@ -92,30 +92,19 @@ def test_contradictory_specs_raise_the_same_spec_error(case):
     assert str(ej.value) == str(et.value)
 
 
-UNPORTED = [
-    lambda m: m.ExperimentSpec(topology=m.Topology(kind="sequential")),
-]
-
-
-@pytest.mark.parametrize("case", range(len(UNPORTED)))
-def test_unported_features_raise_not_implemented(case):
-    ref, port = _both(UNPORTED[case])
-    japi.compile_plan(ref)                  # valid for the reference
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.compile_plan(port)
-
-
 PORTED = [
     lambda m: m.ExperimentSpec(obs=m.ObsSpec(enabled=True)),
     lambda m: m.ExperimentSpec(sim=m.SimSpec()),
     lambda m: m.ExperimentSpec(topology=m.Topology(kind="mesh", devices=4)),
+    lambda m: m.ExperimentSpec(topology=m.Topology(kind="sequential")),
 ]
 
 
 @pytest.mark.parametrize("case", range(len(PORTED)))
 def test_obs_and_sim_specs_compile_as_in_the_reference(case):
-    """Observability, the simulation service and the mesh topology are
-    ported: both packages compile these specs into the same plan."""
+    """Observability, the simulation service, the mesh topology and the
+    sequential reference loops are ported: both packages compile these
+    specs into the same plan."""
     ref, port = _both(PORTED[case])
     tp, jp = tapi.compile_plan(port), japi.compile_plan(ref)
     assert (tp.stages, tp.engine, tp.mesh_devices) == \

@@ -29,7 +29,9 @@ traced 1,000-node window, and a run resumed from a checkpoint on the
 card, are bit for bit their untraced and uninterrupted twins; a
 checkpoint written on the card restores on the CPU with equal arrays.
 The node mesh: a `FleetMesh` over an NCCL group of one rank against the
-unsharded engines, at the CPU mesh tests' limits.
+unsharded engines, at the CPU mesh tests' limits.  The sequential
+reference loops on the card against the CPU at the CPU parity tests'
+limits, with no kernel launched.
 """
 import numpy as np
 import pytest
@@ -1235,3 +1237,48 @@ def test_nccl_world_of_one_matches_the_unsharded_run(cuda, kind, tmp_path):
     for a, b in zip(tree.leaves(got.final_params),
                     tree.leaves(want.final_params)):
         assert float((a - b).abs().max()) < tol
+
+
+@pytest.mark.parametrize("kind", ["sync", "async"])
+def test_sequential_loop_on_the_card_matches_the_cpu(cuda, kind):
+    """The reference loops (`Topology(kind="sequential")`: SLDPFL+DGC's
+    barrier loop, ALDPFL+DGC's event loop) on the card against the CPU at
+    the CPU parity tests' limits: versions, rejections and bytes equal,
+    t within rtol 1e-9, accuracy within 2e-3, params within 1e-5; the
+    loops launch none of K1-K8."""
+    from repro_torch.kernels import flash_attention, selective_scan, ssd_scan
+
+    wrappers = (uf.upload_fused_fleet, wf.window_fold_fleet, wb.nnz_fleet,
+                sp.sparsify_fleet, ldp.ldp_perturb_fleet,
+                flash_attention.flash_attention,
+                selective_scan.selective_scan, ssd_scan.ssd_scan)
+    spec = api.ExperimentSpec(
+        fleet=api.FleetSpec(n_nodes=8, model="mlp", hw=(8, 8),
+                            samples_per_node=80, n_test=256,
+                            n_cloud_test=128,
+                            attack=api.AttackMix(malicious_frac=0.25)),
+        schedule=api.SchedulePolicy(kind=kind),
+        privacy=api.PrivacySpec(sigma=0.05),
+        compression=api.CompressionSpec(sparsify_ratio=0.25),
+        defense=api.DefenseSpec(detect=True),
+        topology=api.Topology(kind="sequential"),
+        train=api.TrainSpec(local_steps=8, batch_size=16, lr=0.1),
+        rounds=4, seed=0)
+    plan = api.compile_plan(spec)
+    pop = api.materialize(spec, device="cpu")
+    before = [fn.launches for fn in wrappers]
+    r_gpu = api.run(plan, population=pop, device="cuda")
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in wrappers] == before
+    r_cpu = api.run(plan, population=pop, device="cpu")
+    assert r_gpu.engine == r_cpu.engine == "sequential"
+    assert len(r_cpu.records) == len(r_gpu.records) == 4
+    for a, b in zip(r_cpu.records, r_gpu.records):
+        assert (a.version, a.comm_bytes, a.n_rejected) == \
+            (b.version, b.comm_bytes, b.n_rejected)
+        assert abs(a.t - b.t) <= 1e-9 * abs(a.t)
+        assert abs(a.accuracy - b.accuracy) <= 2e-3
+    assert r_gpu.epsilon_spent == r_cpu.epsilon_spent
+    for x, y in zip(tree.leaves(r_cpu.final_params),
+                    tree.leaves(r_gpu.final_params)):
+        assert float((x - y.cpu()).abs().max()) <= 1e-5

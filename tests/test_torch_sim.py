@@ -2,8 +2,10 @@
 
 * Kill and resume inside the port is bit for bit the uninterrupted run —
   sync, async and buffered, over the network with a diurnal trace, across
-  an ``attack``, a ``nodes`` and a ``network`` event, the record stream
-  rebuilt on resume.
+  an ``attack``, a ``nodes`` and a ``network`` event, and the sequential
+  reference loops (sync and async; no network, traces or membership
+  events there) across an ``attack`` and a ``defense`` event, the record
+  stream rebuilt on resume.
 * A checkpoint the JAX `SimService` wrote resumes in the port, and its
   tail matches the JAX uninterrupted run at `tests/test_torch_api.py`'s
   limits: t, version, bytes and rejections equal, accuracy within
@@ -43,6 +45,9 @@ def _recs(report):
 
 
 def _spec(m, kind, events=True, records_jsonl=None, rounds=5):
+    if kind.startswith("sequential-"):
+        return _sequential_spec(m, kind[len("sequential-"):], events,
+                                records_jsonl, rounds)
     sim = m.SimSpec(
         traces=(m.TrafficTrace(kind="diurnal", period_s=30.0,
                                amplitude=0.4),),
@@ -68,16 +73,43 @@ def _spec(m, kind, events=True, records_jsonl=None, rounds=5):
         rounds=rounds, seed=0, sim=sim)
 
 
+def _sequential_spec(m, kind, events, records_jsonl, rounds):
+    """The reference loops' counterpart of `_spec`: the loops have no
+    network, no traffic traces and no membership, so an attack onset and
+    a defense change are their events."""
+    sim = m.SimSpec(
+        events=(m.SimEvent(at_round=1, kind="attack", payload={
+                    "malicious_frac": 0.5, "kind": "label_flip"}),
+                m.SimEvent(at_round=3, kind="defense",
+                           payload={"detect_s": 60.0})) if events else ())
+    return m.ExperimentSpec(
+        fleet=m.FleetSpec(n_nodes=8, model="mlp", hw=(8, 8),
+                          samples_per_node=30, n_test=N_TEST,
+                          n_cloud_test=64),
+        schedule=m.SchedulePolicy(kind=kind),
+        privacy=m.PrivacySpec(sigma=0.05),
+        compression=m.CompressionSpec(sparsify_ratio=0.2),
+        defense=m.DefenseSpec(detect=True),
+        obs=m.ObsSpec(enabled=records_jsonl is not None,
+                      records_jsonl=records_jsonl),
+        topology=m.Topology(kind="sequential"),
+        train=m.TrainSpec(local_steps=2, batch_size=8, lr=0.1),
+        rounds=rounds, seed=0, sim=sim)
+
+
+KINDS = ["sync", "async", "buffered", "sequential-sync", "sequential-async"]
+
+
 @pytest.fixture(scope="module")
 def uninterrupted():
     """kind -> the port's uninterrupted service run of `_spec`."""
     return {kind: TSim(tapi.compile_plan(_spec(tapi, kind)),
                        device="cpu").run()
-            for kind in ("sync", "async", "buffered")}
+            for kind in KINDS}
 
 
 @pytest.mark.parametrize("kill_at", [1, 2, 4])
-@pytest.mark.parametrize("kind", ["sync", "async", "buffered"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_kill_and_resume_is_bitwise(uninterrupted, tmp_path, kind,
                                     kill_at):
     base = uninterrupted[kind]
@@ -98,13 +130,20 @@ def test_kill_and_resume_is_bitwise(uninterrupted, tmp_path, kind,
     assert _recs(tapi.replay_records(stream)) == _recs(base)
 
 
-def test_events_and_traces_move_the_run(uninterrupted):
-    quiet = TSim(tapi.compile_plan(_spec(tapi, "async", events=False)),
+@pytest.mark.parametrize("kind", ["async", "sequential-async"])
+def test_events_and_traces_move_the_run(uninterrupted, kind):
+    """The events move the run; so does the trace where there is one (the
+    reference loops have none: their quiet service run is the batch
+    run)."""
+    quiet = TSim(tapi.compile_plan(_spec(tapi, kind, events=False)),
                  device="cpu").run()
-    assert _recs(quiet) != _recs(uninterrupted["async"])
+    assert _recs(quiet) != _recs(uninterrupted[kind])
     plain = tapi.run(tapi.compile_plan(dataclasses.replace(
-        _spec(tapi, "async", events=False), sim=None)), device="cpu")
-    assert _recs(plain) != _recs(quiet)
+        _spec(tapi, kind, events=False), sim=None)), device="cpu")
+    if kind.startswith("sequential-"):
+        assert _recs(plain) == _recs(quiet)
+    else:
+        assert _recs(plain) != _recs(quiet)
 
 
 def test_empty_simspec_service_matches_batch_run():
@@ -119,7 +158,7 @@ def test_empty_simspec_service_matches_batch_run():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kind", ["sync", "async", "buffered"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_jax_checkpoint_resumes_in_the_port(tmp_path, kind):
     """The JAX service checkpoints after record 2 and runs on (its run
     is the uninterrupted one: the reference resumes bit-exactly); the
